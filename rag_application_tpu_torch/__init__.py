@@ -1,0 +1,21 @@
+"""rag_application_tpu_torch — the PyTorch/CUDA port of rag_application_tpu.
+
+The JAX package `rag_application_tpu` is the reference; this package
+keeps its module paths and public names so each piece has an obvious
+counterpart, and never imports JAX or anything of the JAX package.
+
+Layering (bottom-up), as far as the port reaches so far:
+  csrc/      hand-written CUDA kernels for Hopper (sm_90a): the fused
+             int8/bf16 similarity scan and the BM25 match
+  kernels/   nvcc build of csrc/ into one shared library, loaded via ctypes
+  ops/       kernel wrappers (each with its plain PyTorch version) and the
+             plain tensor ops around them: quantization, top-k, RRF, BM25
+  index/     device-resident dense index and BM25 index
+  search/    the hybrid query funnel (`search.fused.FusedSearcher`)
+  state.py   builds the port's indexes from the JAX indexes' arrays
+
+Entry points run on CUDA unless the caller passes a CPU device; on a CPU
+tensor every kernel wrapper takes its plain version.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,102 @@
+"""Build the port's indexes from the JAX indexes' state, given as numpy.
+
+The "weights carried across" of this system are the index tables: with
+these, both packages search identical tables (the tests hold the port
+against the reference on them), whatever rounding their insert paths
+differ by. The arrays come from `np.asarray` of the JAX index's device
+arrays; bf16 planes arrive as `ml_dtypes.bfloat16`, which
+`torch.from_numpy` refuses, so they are carried as their ``.view(np.uint16)``
+bits and rebuilt with ``.view(torch.bfloat16)``. This module imports no JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from .config import IndexConfig, SparseConfig
+from .index.dense import DenseIndex
+from .index.sparse import SparseIndex
+from .utils import DeviceLike
+
+
+def _tensor(a: Optional[np.ndarray], device) -> Optional[torch.Tensor]:
+    if a is None:
+        return None
+    return torch.from_numpy(np.require(a, requirements=["C", "W"])).to(device)
+
+
+def bf16_from_bits(bits: np.ndarray, device: DeviceLike = None
+                   ) -> torch.Tensor:
+    """uint16 bf16 bits (numpy) -> bf16 tensor on ``device``."""
+    if bits.dtype != np.uint16:
+        raise TypeError(f"bf16 planes are carried as uint16 bits, got "
+                        f"{bits.dtype}")
+    return _tensor(bits, device).view(torch.bfloat16)
+
+
+def dense_from_numpy(cfg: IndexConfig, arrays: Mapping[str, np.ndarray],
+                     size: int, has_deletes: bool, *,
+                     device: DeviceLike = None) -> DenseIndex:
+    """DenseIndex holding the given tables. ``arrays``: ``vecs`` (uint16
+    bf16 bits or None), ``int8``, ``inv_norms``, ``int8_recip``, ``live``,
+    ``prefix_int8`` — each None where the storage mode has no such plane.
+    """
+    idx = DenseIndex(cfg, device=device)
+    dev = idx.device
+    vecs = arrays.get("vecs")
+    tables: Dict[str, Optional[torch.Tensor]] = {
+        "vecs": bf16_from_bits(vecs, dev) if vecs is not None else None,
+        "int8": _tensor(arrays.get("int8"), dev),
+        "inv_norms": _tensor(arrays["inv_norms"], dev),
+        "int8_recip": _tensor(arrays.get("int8_recip"), dev),
+        "live": _tensor(arrays["live"], dev),
+        "prefix_int8": _tensor(arrays.get("prefix_int8"), dev),
+    }
+    for name, t in tables.items():
+        have = getattr(idx, name) is not None
+        if have != (t is not None):
+            raise ValueError(f"{name}: the config {'expects' if have else 'has no'}"
+                             f" this plane")
+        setattr(idx, name, t)
+    cap = idx.capacity
+    if any(t is not None and t.shape[0] != cap for t in tables.values()):
+        raise ValueError("all planes must have the same capacity")
+    if not 0 <= size <= cap:
+        raise ValueError(f"size {size} outside capacity {cap}")
+    idx.size = int(size)
+    idx.has_deletes = bool(has_deletes)
+    return idx
+
+
+def sparse_from_numpy(cfg: SparseConfig, arrays: Mapping[str, np.ndarray],
+                      vocab: Mapping[str, int], *,
+                      device: DeviceLike = None) -> SparseIndex:
+    """SparseIndex holding the given device views and host CSR.
+
+    ``arrays``: device views ``post_docs``, ``post_weights`` (None for the
+    packed layout), ``doc_packed``, ``v_pad``; host CSR ``terms``, ``tfs``,
+    ``counts``, ``lens`` (as `SparseIndex._flat()` returns them) and
+    ``deleted`` (tombstoned rows), so later inserts rebuild on top of the
+    carried documents. ``vocab`` is the analyzer vocabulary (term -> id).
+    """
+    idx = SparseIndex(cfg, device=device)
+    idx.analyzer.vocab = dict(vocab)
+    counts = np.asarray(arrays["counts"], dtype=np.int32)
+    idx._append_chunk(arrays["terms"], arrays["tfs"], counts, arrays["lens"])
+    idx._deleted = {int(r) for r in np.asarray(arrays["deleted"]).ravel()}
+    dev = idx.device
+    post_w = arrays.get("post_weights")
+    doc_packed = _tensor(arrays["doc_packed"], dev)
+    if doc_packed.shape[0] != idx._n_docs + 1:
+        raise ValueError("doc_packed must hold one row per doc + sentinel")
+    idx._device = {
+        "post_docs": _tensor(arrays["post_docs"], dev),
+        "post_weights": _tensor(post_w, dev) if post_w is not None else None,
+        "doc_packed": doc_packed,
+        "v_pad": int(arrays["v_pad"]),
+    }
+    idx._dirty = False
+    return idx
