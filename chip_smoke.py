@@ -22,6 +22,19 @@
    with the cascade and rrf fusion, one with dbsf. Checks recall@10
    against an exact oracle on 128 queries (>= 0.95) and that every
    kernel of the path was launched.
+6. Local generation (`[gen-*]`), TinyLlama-1.1B-Chat-v1.0 at its
+   published widths with random bf16 weights from a seed, int8 weights
+   and int8 KV cache, `attn_kernel=True`:
+   `[gen-check]` the int8-KV decode-attention kernel against its plain
+   version at four cache geometries (the main decode shape with fully
+   masked leading blocks and a fully masked row, B 1 at S 256, S 288,
+   KVH 8 / hd 128); `[gen-time]` its kernel, plain and library times
+   beside its bytes bound; `[gen-main]` `generate` at batch 64, prompt
+   896, 128 new tokens (prefill ms, decode ms/step, tokens/s, peak
+   memory, the kernel's launch count against the loop's), 4 decode steps
+   of the kernel path against the einsum path, a profiled decode step,
+   and one `LocalLLM.chat` and one `stream` at B 1 whose texts must be
+   equal.
 
 Prints one `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {...}}`. Exits non-zero on any failure, and
@@ -52,6 +65,20 @@ HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1.979e15
 BF16_OPS_S = 0.989e15
 F32_OPS_S = 67e12
+
+# TinyLlama/TinyLlama-1.1B-Chat-v1.0 config.json (published widths), in
+# the serving setting of docs/decoder.md: batch 64, prompt 896, 128 new
+GEN_CFG = dict(vocab_size=32000, hidden=2048, num_layers=22, heads=32,
+               kv_heads=4, mlp_dim=5632, max_len=1024, rope_theta=10000.0,
+               eps=1e-5, dtype="bfloat16", kv_quant=True, attn_kernel=True)
+GEN_B, GEN_T, GEN_NEW = 64, 896, 128
+# one decode step's attention: (B, S, KVH, G, hd), S = 896 + 128
+ATTN_MAIN = (GEN_B, GEN_T + GEN_NEW, 4, 8, 64)
+# kernel vs einsum path, 4 decode steps, logits ~N(0, 1): both round to
+# bf16 at different points over 22 layers
+GEN_LOGIT_ATOL = 0.25
+CHAT_PROMPT = 512     # tokens: a power of two, so chat and stream share
+CHAT_NEW = 512        # one cache layout and S = 1024 (bitwise-equal paths)
 
 
 def log(msg: str) -> None:
@@ -481,6 +508,280 @@ def profile_batch(searcher, q, texts, funnel):
             f"{e.key[:96]}")
 
 
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at magnitude x (8 significant bits)."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(max(x, 2.0 ** -126))) - 7)
+
+
+def attn_inputs(dev, B, S, KVH, G, hd, seed, masked_rows=False):
+    """Random rope'd queries, an int8 K/V cache made by the decoder's own
+    quantizer, and a visibility mask (with fully masked leading blocks
+    and one fully masked row when asked)."""
+    import torch
+
+    from rag_application_tpu_torch.models.decoder import _kv_quantize
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qg = torch.randn((B, 1, KVH, G, hd), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    ck = _kv_quantize(torch.randn((B, S, KVH, hd), generator=gen, device=dev))
+    cv = _kv_quantize(torch.randn((B, S, KVH, hd), generator=gen, device=dev))
+    mask = torch.rand((B, S), generator=gen, device=dev) > 0.3
+    if masked_rows:
+        mask[: B // 4, : S // 2] = False   # fully masked leading blocks
+        mask[B // 4] = False               # a row with no visible slot
+    return qg, ck, cv, mask
+
+
+def check_decode_attn(dev):
+    """Kernel vs plain at four geometries; each case within 2 bf16 ulps
+    of max|out| (the kernel rounds p*v_scale against its chunk's max, the
+    plain version against the row's), fully masked rows exactly 0.
+    Returns (worst max abs err, main-shape inputs)."""
+    import torch
+
+    from rag_application_tpu_torch.ops import decode_attn as da
+
+    worst, main = 0.0, None
+    cases = [("main decode shape, masked prefix + empty row", ATTN_MAIN,
+              True), ("B 1, S 256", (1, 256, 4, 8, 64), False),
+             ("S 288 (no multiple of 256)", (GEN_B, 288, 4, 8, 64), False),
+             ("KVH 8, hd 128", (8, 1024, 8, 4, 128), True)]
+    for i, (label, (B, S, KVH, G, hd), masked) in enumerate(cases):
+        args = attn_inputs(dev, B, S, KVH, G, hd, 11 + i, masked)
+        k_out = da.decode_attend_int8(*args)
+        p_out = da.decode_attend_int8_plain(*args)
+        torch.cuda.synchronize()
+        err = (k_out.float() - p_out.float()).abs().max().item()
+        bound = 2 * bf16_ulp(p_out.float().abs().max().item())
+        empty = ~args[3].any(dim=1)
+        zero = bool((k_out[empty] == 0).all().item())
+        log(f"  decode_attn {label} (B {B}, S {S}, KVH {KVH}, G {G}, hd "
+            f"{hd}): max_abs_err {err:.3g} (bound {bound:.3g}), "
+            f"{int(empty.sum())} empty rows exactly 0: {zero}")
+        if err > bound or not zero:
+            raise AssertionError(f"decode_attn kernel != plain: {label}")
+        worst = max(worst, err)
+        if i == 0:
+            main = args
+    return worst, main
+
+
+def time_decode_attn(args):
+    """Kernel, plain and library ms at the main decode shape, and the
+    bytes bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from rag_application_tpu_torch.ops import decode_attn as da
+
+    qg, ck, cv, mask = args
+    B, _, KVH, G, hd = qg.shape
+    S = ck["q"].shape[1]
+    ms = cuda_ms(lambda: da.decode_attend_int8(*args), reps=50)
+    plain_ms = cuda_ms(lambda: da.decode_attend_int8_plain(*args), reps=5)
+
+    # yardstick: SDPA on K/V dequantized to bf16 beforehand (timed apart)
+    def deq(c):
+        return (c["q"].float() * c["s"][..., None]).to(
+            torch.bfloat16).transpose(1, 2)          # (B, KVH, S, hd)
+
+    deq_ms = cuda_ms(lambda: (deq(ck), deq(cv)), reps=5)
+    k, v = deq(ck), deq(cv)
+    q = qg.reshape(B, KVH * G, 1, hd)
+    am = mask[:, None, None, :]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=am, enable_gqa=True), reps=50)
+    nbytes = (2 * ck["q"].numel() + 2 * ck["s"].numel() * 4 + mask.numel()
+              + 2 * qg.numel() * 2)
+    ops = 2 * 2 * B * KVH * G * S * hd
+    bound = max(nbytes / HBM_BYTES_S, ops / BF16_OPS_S) * 1e3
+    by = "bytes" if nbytes / HBM_BYTES_S >= ops / BF16_OPS_S else "operations"
+    log(f"  decode_attn {tuple(ck['q'].shape)}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, SDPA (bf16 K/V, enable_gqa) {lib_ms:.4f} ms + "
+        f"dequantization {deq_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
+        f"{nbytes / 1e6:.1f} MB)")
+    return ms, plain_ms, lib_ms, bound, by
+
+
+def run_generate(dev):
+    """`generate` at the TinyLlama-1.1B serving shape; returns (params,
+    cfg, decode_attn launches)."""
+    import torch
+
+    from rag_application_tpu_torch.models import decoder as dec
+    from rag_application_tpu_torch.ops import bm25 as ob
+    from rag_application_tpu_torch.ops import decode_attn as da
+    from rag_application_tpu_torch.ops import fused_topk as ft
+
+    cfg = dec.DecoderConfig(**GEN_CFG)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = dec.quantize_decoder_params(
+        dec.init_decoder_params(gen, cfg, dev))
+    torch.cuda.synchronize()
+    wbytes = sum(t.numel() * t.element_size() for v in params.values()
+                 for t in (v.values() if isinstance(v, dict) else [v]))
+    log(f"  weights: random bf16 from seed 0, int8-quantized in "
+        f"{time.perf_counter() - t0:.1f} s; {wbytes / 1e9:.3f} GB on device")
+    ids = torch.randint(0, cfg.vocab_size, (GEN_B, GEN_T), generator=gen,
+                        device=dev, dtype=torch.int32)
+    plen = torch.full((GEN_B,), GEN_T, dtype=torch.int32, device=dev)
+    eos = cfg.vocab_size  # unreachable: no early stop
+
+    dec.generate(params, cfg, ids[:, :64], plen // 14, 2, eos, 0)  # warm-up
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    ck, cv = dec.init_kv_cache(cfg, GEN_B, GEN_T + GEN_NEW, device=dev)
+    logits, ck, cv = dec.prefill(params, cfg, ids, plen, ck, cv)
+    ev[1].record()
+    torch.cuda.synchronize()
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    del ck, cv, logits
+
+    torch.cuda.reset_peak_memory_stats()
+    ft.scan_sheet.launches = 0
+    ob.bm25_match_scores.launches = 0
+    da.decode_attend_int8.launches = 0
+    t0 = time.perf_counter()
+    ev[2].record()
+    out, n = dec.generate(params, cfg, ids, plen, GEN_NEW, eos, 0)
+    ev[3].record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = da.decode_attend_int8.launches
+    gen_ms = ev[2].elapsed_time(ev[3])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = (gen_ms - prefill_ms) / GEN_NEW
+    log(f"  generate B {GEN_B} x prompt {GEN_T} + {GEN_NEW} new: "
+        f"{gen_ms:.1f} ms (CUDA events; host {host_s * 1e3:.1f} ms) -> "
+        f"{GEN_B * GEN_NEW / (gen_ms / 1e3):,.0f} new tokens/s; prefill "
+        f"alone {prefill_ms:.1f} ms ({GEN_B * GEN_T / (prefill_ms / 1e3):,.0f}"
+        f" prompt tokens/s); decode {step_ms:.3f} ms/step; peak device "
+        f"memory {peak:.2f} GiB")
+    o = out.cpu().numpy()
+    assert o.shape == (GEN_B, GEN_NEW) and ((0 <= o) & (o < cfg.vocab_size)
+                                            ).all()
+    assert (n.cpu().numpy() == GEN_NEW).all()
+    want = cfg.num_layers * GEN_NEW  # one launch per layer per decode step
+    log(f"  decode_attn launches in generate: {launches} (the loop implies "
+        f"{cfg.num_layers} layers x {GEN_NEW} steps = {want}); fused_scan "
+        f"{ft.scan_sheet.launches}, bm25_match "
+        f"{ob.bm25_match_scores.launches}")
+    if launches != want:
+        raise AssertionError(f"decode_attn launched {launches} times, "
+                             f"expected {want}")
+    return params, cfg, ids, launches
+
+
+def compare_attention_paths(params, cfg, ids):
+    """4 decode steps on one prefilled cache through the kernel path and
+    the einsum path, fed the same tokens; then one profiled step."""
+    import dataclasses
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rag_application_tpu_torch.models import decoder as dec
+
+    dev = ids.device
+    cfg_e = dataclasses.replace(cfg, attn_kernel=False)
+    plen = torch.full((GEN_B,), GEN_T, dtype=torch.int32, device=dev)
+    ck, cv = dec.init_kv_cache(cfg, GEN_B, GEN_T + GEN_NEW, device=dev)
+    logits, ck, cv = dec.prefill(params, cfg, ids, plen, ck, cv)
+    ek = {k: t.clone() for k, t in ck.items()}
+    evv = {k: t.clone() for k, t in cv.items()}
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    worst, agree = 0.0, []
+    for step in range(4):
+        pos = plen + step
+        lk, ck, cv = dec.decode_step(params, cfg, tok, pos, GEN_T + step,
+                                     ck, cv)
+        le, ek, evv = dec.decode_step(params, cfg_e, tok, pos, GEN_T + step,
+                                      ek, evv)
+        worst = max(worst, (lk - le).abs().max().item())
+        agree.append((lk.argmax(-1) == le.argmax(-1)).float().mean().item())
+        tok = torch.argmax(lk, -1).to(torch.int32)
+    log(f"  kernel path vs einsum path, 4 decode steps: max abs logit err "
+        f"{worst:.4f} (tolerance {GEN_LOGIT_ATOL}; max|logit| "
+        f"{lk.abs().max().item():.2f}), greedy agreement per step {agree}")
+    if not worst <= GEN_LOGIT_ATOL:
+        raise AssertionError("kernel path logits differ from einsum path")
+
+    pos = plen + 4
+    dec.decode_step(params, cfg, tok, pos, GEN_T + 4, ck, cv)
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ev0.record()
+        for step in range(5, 9):
+            dec.decode_step(params, cfg, tok, plen + step, GEN_T + step,
+                            ck, cv)
+        ev1.record()
+        torch.cuda.synchronize()
+    wall = ev0.elapsed_time(ev1) / 4
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / 4
+    attn = sum(e.self_device_time_total for e in kern
+               if "decode_attn" in e.key) / 1e3 / 4
+    log(f"[profile] decode step (B {GEN_B}, S {GEN_T + GEN_NEW}), mean of 4: "
+        f"{wall:.3f} ms wall (CUDA events); device busy {busy:.3f} ms "
+        f"({busy / wall:.1%}), idle {1 - busy / wall:.1%}; decode_attn "
+        f"kernels {attn:.3f} ms ({attn / wall:.1%} of the step)")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"  {e.self_device_time_total / 4e3:10.3f} ms/step  "
+            f"x{e.count // 4:<4d} {e.key[:90]}")
+    return worst
+
+
+def run_local_llm(params, cfg, dev):
+    """One LocalLLM.chat and one stream at B 1, greedy; texts equal."""
+    import asyncio
+
+    import torch
+
+    from rag_application_tpu_torch.llm.local import LocalLLM
+    from rag_application_tpu_torch.llm.router import ChatMessage
+    from rag_application_tpu_torch.models.wordpiece import WordPieceTokenizer
+    from rag_application_tpu_torch.ops import decode_attn as da
+
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", ":", "user", "assistant"]
+    words += [f"w{i}" if i % 2 else f"##p{i}"
+              for i in range(cfg.vocab_size - len(words))]
+    tok = WordPieceTokenizer.from_vocab_list(words, max_len=cfg.max_len)
+    llm = LocalLLM(params, cfg, tok, device=dev)
+    # [CLS] user : w.. assistant : = CHAT_PROMPT tokens (trailing [SEP]
+    # dropped): bucket == prompt, so chat's cache layout is stream's
+    content = " ".join(f"w{2 * i + 1}" for i in range(CHAT_PROMPT - 5))
+    msgs = [ChatMessage("user", content)]
+    assert len(llm.render(msgs)) == CHAT_PROMPT
+
+    async def drive():
+        t0 = time.perf_counter()
+        resp = await llm.chat(msgs, max_tokens=CHAT_NEW, temperature=0.0)
+        t1 = time.perf_counter()
+        chunks = [c async for c in llm.stream(msgs, max_tokens=CHAT_NEW,
+                                              temperature=0.0)]
+        return resp, chunks, t1 - t0, time.perf_counter() - t1
+
+    da.decode_attend_int8.launches = 0
+    resp, chunks, chat_s, stream_s = asyncio.run(drive())
+    torch.cuda.synchronize()
+    text = "".join(chunks)
+    log(f"  LocalLLM.chat: {resp.usage}, {chat_s:.2f} s; stream: "
+        f"{len(chunks)} chunks, {stream_s:.2f} s; decode_attn launches "
+        f"{da.decode_attend_int8.launches}; text[:80] {resp.content[:80]!r}")
+    if not resp.content or text != resp.content:
+        raise AssertionError("chat and stream texts differ or are empty")
+    return da.decode_attend_int8.launches
+
+
 def main() -> int:
     import torch
 
@@ -537,6 +838,21 @@ def main() -> int:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the path")
+    del dense, sparse, tokens, q, texts, bm25_args
+    torch.cuda.empty_cache()
+
+    log("[gen-check] decode_attn kernel vs plain on the card")
+    attn_err, attn_args = check_decode_attn(dev)
+    log(f"[gen-time] decode_attn at the main decode shape ({card})")
+    attn_t = time_decode_attn(attn_args)
+    del attn_args
+    torch.cuda.empty_cache()
+    log(f"[gen-main] generate, TinyLlama-1.1B widths, {GEN_B} x {GEN_T} + "
+        f"{GEN_NEW}, int8 weights + int8 KV, attn_kernel ({card})")
+    params, gcfg, gen_ids, attn_launches = run_generate(dev)
+    compare_attention_paths(params, gcfg, gen_ids)
+    torch.cuda.empty_cache()
+    run_local_llm(params, gcfg, dev)
 
     def entry(name, source, replaces, launches_, err, t):
         ms, plain_ms, lib_ms, bound_ms, bound_by = t
@@ -553,6 +869,9 @@ def main() -> int:
         entry("bm25_match", "rag_application_tpu_torch/csrc/bm25_match.cu",
               "rag_application_tpu/ops/bm25.py:45",
               launches["bm25_match"], bm25_err, bm25_t),
+        entry("decode_attn", "rag_application_tpu_torch/csrc/decode_attn.cu",
+              "rag_application_tpu/ops/decode_attn.py:86", attn_launches,
+              attn_err, attn_t),
     ]}), flush=True)
     log(f"{card}")
     print(json.dumps({"ok": True, "device": {

@@ -6,13 +6,18 @@ counterpart, and never imports JAX or anything of the JAX package.
 
 Layering (bottom-up), as far as the port reaches so far:
   csrc/      hand-written CUDA kernels for Hopper (sm_90a): the fused
-             int8/bf16 similarity scan and the BM25 match
+             int8/bf16 similarity scan, the BM25 match and the int8-KV
+             flash-decode attention
   kernels/   nvcc build of csrc/ into one shared library, loaded via ctypes
   ops/       kernel wrappers (each with its plain PyTorch version) and the
-             plain tensor ops around them: quantization, top-k, RRF, BM25
+             plain tensor ops around them: quantization, top-k, RRF, BM25,
+             decode attention
   index/     device-resident dense index and BM25 index
   search/    the hybrid query funnel (`search.fused.FusedSearcher`)
-  state.py   builds the port's indexes from the JAX indexes' arrays
+  models/    the LLaMA-family decoder and the WordPiece tokenizer
+  llm/       the provider router and `LocalLLM` (on-device generation)
+  state.py   builds the port's indexes and decoder weights from the JAX
+             package's arrays
 
 Entry points run on CUDA unless the caller passes a CPU device; on a CPU
 tensor every kernel wrapper takes its plain version.

@@ -125,6 +125,9 @@ def load() -> ctypes.CDLL:
                                       i, i, i, i, p, p, p]
     lib.bm25_match_launch.restype = i
     lib.bm25_match_launch.argtypes = [p, ll, p, ll, i, i, i, p, p, i, p, p]
+    lib.decode_attn_launch.restype = i
+    lib.decode_attn_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                       ctypes.c_float, p, p, p]
     lib.kernels_error_string.restype = ctypes.c_char_p
     lib.kernels_error_string.argtypes = [i]
     _lib = lib

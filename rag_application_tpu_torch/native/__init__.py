@@ -1,6 +1,7 @@
 """Native (C) components, loaded via ctypes.
 
-Copy of `rag_application_tpu/native/__init__.py` (analyzer only).
+Copy of `rag_application_tpu/native/__init__.py` (the analyzer; the
+WordPiece binding is `wordpiece_lib.py`).
 
 The shared library is built lazily on first use with the system
 compiler (cc/g++ are part of the target image; pybind11 is not, hence

@@ -1,4 +1,5 @@
-"""Build the port's indexes from the JAX indexes' state, given as numpy.
+"""Build the port's indexes and decoder from the JAX package's state,
+given as numpy.
 
 The "weights carried across" of this system are the index tables: with
 these, both packages search identical tables (the tests hold the port
@@ -6,12 +7,14 @@ against the reference on them), whatever rounding their insert paths
 differ by. The arrays come from `np.asarray` of the JAX index's device
 arrays; bf16 planes arrive as `ml_dtypes.bfloat16`, which
 `torch.from_numpy` refuses, so they are carried as their ``.view(np.uint16)``
-bits and rebuilt with ``.view(torch.bfloat16)``. This module imports no JAX.
+bits and rebuilt with ``.view(torch.bfloat16)``. The decoder's weights
+are carried the same way (`decoder_params_from_jax`), so both packages run
+the same model. This module imports no JAX.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -19,6 +22,7 @@ import torch
 from .config import IndexConfig, SparseConfig
 from .index.dense import DenseIndex
 from .index.sparse import SparseIndex
+from .models.decoder import DecoderConfig
 from .utils import DeviceLike
 
 
@@ -100,3 +104,29 @@ def sparse_from_numpy(cfg: SparseConfig, arrays: Mapping[str, np.ndarray],
     }
     idx._dirty = False
     return idx
+
+
+def decoder_params_from_jax(params: Mapping[str, Any], cfg: DecoderConfig,
+                            device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's decoder params from a JAX decoder param tree given as
+    numpy arrays: bf16 leaves as their uint16 bits, float32 leaves as
+    they are, and int8-quantized ``{"q", "s"}`` leaves carried exactly.
+    The leaves' float type must be ``cfg.dtype``'s (norms and biases
+    included), as the JAX package makes them."""
+    want = np.uint16 if cfg.dtype == "bfloat16" else np.dtype(cfg.dtype)
+    out: Dict[str, Any] = {}
+    for name, leaf in params.items():
+        if isinstance(leaf, Mapping):
+            q, s = np.asarray(leaf["q"]), np.asarray(leaf["s"])
+            if q.dtype != np.int8 or s.dtype != np.float32:
+                raise TypeError(f"{name}: quantized leaves are int8 q and "
+                                f"f32 s, got {q.dtype} and {s.dtype}")
+            out[name] = {"q": _tensor(q, device), "s": _tensor(s, device)}
+            continue
+        a = np.asarray(leaf)
+        if a.dtype != want:
+            raise TypeError(f"{name}: {cfg.dtype} config expects "
+                            f"{np.dtype(want)} leaves, got {a.dtype}")
+        out[name] = (bf16_from_bits(a, device) if a.dtype == np.uint16
+                     else _tensor(a, device))
+    return out

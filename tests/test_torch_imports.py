@@ -1,5 +1,6 @@
-"""The port stands alone: every module of `rag_application_tpu_torch`
-imports with JAX blocked, and none of them loads the JAX package."""
+"""The port stands alone: every module of `rag_application_tpu_torch`, and
+`chip_smoke.py`, imports with JAX blocked, and none of them loads the JAX
+package."""
 
 import os
 import subprocess
@@ -14,7 +15,7 @@ for name in ("jax", "jaxlib", "flax", "optax"):
 import rag_application_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
         if not m.name.rsplit(".", 1)[-1].startswith("lib")]  # built .so files
-for m in mods:
+for m in mods + ["chip_smoke"]:
     importlib.import_module(m)
 leaked = sorted(m for m in sys.modules
                 if m == "rag_application_tpu" or m.startswith("rag_application_tpu."))
@@ -28,5 +29,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # ops, index, search, kernels, native, utils, config, state, ...
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+    # ops (incl. decode_attn), index, search, kernels, native (incl.
+    # wordpiece_lib), models (decoder, wordpiece), llm (router, local),
+    # utils, config, state, ...
+    assert int(out.stdout.strip().splitlines()[-1]) >= 29
