@@ -22,7 +22,28 @@
    with the cascade and rrf fusion, one with dbsf. Checks recall@10
    against an exact oracle on 128 queries (>= 0.95) and that every
    kernel of the path was launched.
-6. Local generation (`[gen-*]`), TinyLlama-1.1B-Chat-v1.0 at its
+6. The write path and the tokens wire, at the repo's defaults
+   (`Config()`: a 768-d index with bf16 + int8 planes and matryoshka dims
+   (64, 128, 256); `EncoderConfig()`: vocab 30528, hidden 384, 6 layers,
+   12 heads, MLP 1536, out 768, bf16, random weights from seed 0;
+   Embedder windows of 128 tokens in batches of 64):
+   `[prep-check]` the insert prep kernel against its plain version at six
+   shapes (a 131,072 x 768 slab, a 64-row document, one row, 1037 x 100,
+   dims=(), zero and rescaled rows); `[prep-time]` its kernel and plain
+   times beside its bytes bound; `[ingest]` 4,096 documents x 64 chunks
+   (24-word zipf texts) through `Embedder.encode` and
+   `Collection.store_document_vectors` (chunks/s, encode and store ms per
+   document, a profiled document's device busy share, one
+   `prepare_vectors` launch per document); `[tokens]` 8 batches of 256
+   noisy chunk texts through `hybrid_search_text_batch`, held to
+   encode-then-`hybrid_search_batch` (equal rows but at near-ties) and to
+   recall@10 >= 0.95 against an exact oracle, then `delete_document` and
+   a batch in which no hit may come from the deleted document. In one
+   batch before the delete and one after it, every scan and BM25 launch
+   of the path (the cascade's bf16 prefix-64 scan, the int8 scan, the
+   match at the collection's pool; masked after the delete) is held
+   against its plain version on the same inputs.
+7. Local generation (`[gen-*]`), TinyLlama-1.1B-Chat-v1.0 at its
    published widths with random bf16 weights from a seed, int8 weights
    and int8 KV cache, `attn_kernel=True`:
    `[gen-check]` the int8-KV decode-attention kernel against its plain
@@ -43,6 +64,7 @@ when CUDA is not available.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -79,6 +101,15 @@ ATTN_MAIN = (GEN_B, GEN_T + GEN_NEW, 4, 8, 64)
 GEN_LOGIT_ATOL = 0.25
 CHAT_PROMPT = 512     # tokens: a power of two, so chat and stream share
 CHAT_NEW = 512        # one cache layout and S = 1024 (bitwise-equal paths)
+
+# the write path: Config()/EncoderConfig() defaults, Embedder(max_len=128,
+# batch_size=64) as the README's quick start builds it
+PREP_SLAB = 131072    # rows per insert slab (build_tables inserts 8 + 1)
+PREP_DIMS = (64, 128, 256)  # IndexConfig().matryoshka_dims
+INGEST_DOCS, INGEST_CHUNKS = 4096, 64
+EMB_LEN, EMB_BATCH = 128, 64
+TOK_BATCHES, TOK_BATCH = 8, 256  # the API micro-batcher's default batch
+TOK_FLIP = 0.2        # share of a query's words resampled (bench.py)
 
 
 def log(msg: str) -> None:
@@ -360,6 +391,74 @@ def check_bm25(sparse, texts):
     return err, args
 
 
+@contextlib.contextmanager
+def recording(module, name):
+    """While the block runs, record ``(args, kwargs, result)`` of every
+    call of the kernel wrapper ``module.name`` (the wrapper still runs).
+    The wrapper counts its launches on its module-level name, so these
+    launches go to the recorder's own ``launches`` and the wrapper's
+    count is left as it was."""
+    fn = getattr(module, name)
+    calls = []
+
+    def rec(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    rec.launches = 0
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def check_recorded(label, scans, matches):
+    """Each recorded `scan_sheet` and `bm25_match_scores` launch of a path,
+    against the plain version on the same inputs: int8 sheets bit-equal;
+    f32 sheets within 2 d 2^-24 (each side within d 2^-24 of the exact
+    dot of unit prefixes) with other ids only at near-ties; BM25
+    bit-equal. Returns (scan max abs err, bm25 max abs err)."""
+    import torch
+
+    from rag_application_tpu_torch.ops import bm25 as ob
+    from rag_application_tpu_torch.ops import fused_topk as ft
+
+    kinds = {args[0].dtype for args, _, _ in scans}
+    if kinds != {torch.int8, torch.bfloat16} or not matches:
+        raise AssertionError(f"{label}: recorded scans {kinds} and "
+                             f"{len(matches)} bm25 matches")
+    scan_err = 0.0
+    for (c, qs, iv, mask), kw, (kv, ki) in scans:
+        pv, pi = ft.scan_sheet_plain(c, qs, iv, mask, **kw)
+        err = (kv - pv).abs().max().item()
+        scan_err = max(scan_err, err)
+        mism = (ki != pi).sum().item()
+        if c.dtype == torch.int8:
+            ok = torch.equal(kv.view(torch.int32),
+                             pv.view(torch.int32)) and mism == 0
+        else:
+            atol = 2 * c.shape[1] * 2.0 ** -24
+            ok = err <= atol and near_ties_ok(c, qs, iv, ki, pi, 2 * atol)
+        line = (f"{label}: scan {c.dtype} {tuple(c.shape)} Q {qs.shape[0]} "
+                f"block {kw['block_rows']} path {kw['mode']} "
+                f"inv_norms={iv is not None} mask={mask is not None}: "
+                f"max_abs_err {err:.3g} id_mismatches {mism}")
+        log("  " + line)
+        if not ok:
+            raise AssertionError(f"scan kernel != plain: {line}")
+    bm25_err = 0.0
+    for args, _, out in matches:
+        plain = ob.bm25_match_scores_plain(*args)
+        bm25_err = max(bm25_err, (out - plain).abs().max().item())
+        line = f"{label}: bm25 match {tuple(args[0].shape)}"
+        log(f"  {line}: bit-equal {torch.equal(out, plain)}")
+        if not torch.equal(out, plain):
+            raise AssertionError(f"bm25 match kernel != plain: {line}")
+    return scan_err, bm25_err
+
+
 def time_kernels(dense, q, bm25_args):
     """Kernel, plain and library ms at the full main-path shapes."""
     import torch
@@ -456,7 +555,7 @@ def run_main_path(dense, sparse, tokens, rng):
         times.append((label, dev_ms, host_ms))
         lines.append(f"  {label} [{fusion}]: {dev_ms:.2f} ms/batch (CUDA "
                      f"events), {host_ms:.2f} ms host, path "
-                     f"{ft.fused_scan_topk.last_path}")
+                     f"{getattr(ft.fused_scan_topk, 'last_path', None)}")
         log(lines[-1])
     launches = {"fused_scan": ft.scan_sheet.launches,
                 "bm25_match": ob.bm25_match_scores.launches}
@@ -506,6 +605,393 @@ def profile_batch(searcher, q, texts, funnel):
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<4d} "
             f"{e.key[:96]}")
+
+
+def prep_inputs(dev, n, d, seed, special=False):
+    """Spectrally decaying gaussian rows (as build_tables), on the card;
+    with ``special`` a zero row and rows scaled by 1e-3 and 1e3."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scale = torch.exp(-0.003 * torch.arange(d, dtype=torch.float32,
+                                            device=dev))
+    x = torch.randn((n, d), generator=gen, device=dev) * scale
+    if special:
+        x[0] = 0.0
+        x[1::3] *= 1e-3
+        x[2::3] *= 1e3
+    return x
+
+
+def check_prep(dev):
+    """Kernel vs plain at six shapes. Bounds: the bf16 plane within 1 bf16
+    ulp, int8 within 1 step, inv_norms within rtol 2e-6 (~16 f32 ulps:
+    rsqrtf is not correctly rounded and the row sums add in another
+    order); zero rows exact. Returns the worst max abs error of the bf16
+    plane."""
+    import torch
+
+    from rag_application_tpu_torch.ops import quant as oq
+
+    cases = [(f"slab {PREP_SLAB} x {DIM}", PREP_SLAB, DIM, PREP_DIMS, False),
+             (f"document {EMB_BATCH} x {DIM}", EMB_BATCH, DIM, PREP_DIMS,
+              False),
+             (f"1 x {DIM}", 1, DIM, PREP_DIMS, False),
+             ("1037 x 100", 1037, 100, (16, 100), False),
+             (f"4096 x {DIM}", 4096, DIM, (), False),
+             (f"zero + 1e-3/1e3-scaled rows, 300 x {DIM}", 300, DIM,
+              PREP_DIMS, True)]
+    worst = 0.0
+    for i, (label, n, d, dims, special) in enumerate(cases):
+        x = prep_inputs(dev, n, d, 20 + i, special)
+        kn, k8, ki = oq.prepare_vectors(x, dims)
+        pn, p8, pi = oq.prepare_vectors_plain(x, dims)
+        torch.cuda.synchronize()
+        kb = kn.view(torch.int16).int() & 0xFFFF
+        pb = pn.view(torch.int16).int() & 0xFFFF
+        bits = (kb - pb).abs().max().item()
+        err = (kn.float() - pn.float()).abs().max().item()
+        d8 = (k8.int() - p8.int()).abs()
+        rel = ((ki - pi).abs() / pi.abs()).max().item() if dims else 0.0
+        log(f"  prep {label}, dims {dims}: bf16 max_abs_err {err:.3g} "
+            f"({bits} ulp, {(kb != pb).float().mean().item():.2e} of "
+            f"elements differ), int8 max step {d8.max().item()} "
+            f"({(d8 != 0).float().mean().item():.2e} differ), inv_norms max "
+            f"rel err {rel:.3g}")
+        ok = bits <= 1 and d8.max().item() <= 1 and rel <= 2e-6
+        if special:
+            ok = ok and not kn[0].float().any() and not k8[0].any() \
+                and bool((ki[0] == 1e6).all().item())
+        if not ok:
+            raise AssertionError(f"prep_vectors kernel != plain: {label}")
+        worst = max(worst, err)
+    return worst
+
+
+def device_ms(fn, reps: int, match: str | None = None) -> float:
+    """Mean device time per call of ``fn``: the self device time of the
+    CUDA kernels it ran (those whose name holds ``match``, if given),
+    from torch.profiler over ``reps`` calls. Unlike CUDA events around
+    back-to-back calls, it leaves out the gaps in which the device waits
+    for the host to enqueue the next launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and (match is None or match in e.key))
+    if us <= 0:
+        raise AssertionError(f"the profiler saw no device time ({match})")
+    return us / 1e3 / reps
+
+
+def time_prep(dev):
+    """Kernel and plain ms at the slab and the document shape, beside the
+    bytes bound (the function moves 4d bytes in and 3d + 4M out per
+    row). The times are device times from the profiler; at the document
+    shape CUDA events around back-to-back calls measure the host's
+    enqueue rate instead, which is logged beside them. Returns (ms,
+    plain_ms, None, bound_ms, bound_by) for each, the slab's first; the
+    document's is the shape `[ingest]` launches."""
+    from rag_application_tpu_torch.ops import quant as oq
+
+    out = []
+    for n, reps in ((PREP_SLAB, 20), (EMB_BATCH, 200)):
+        x = prep_inputs(dev, n, DIM, 40)
+        run = lambda: oq.prepare_vectors(x, PREP_DIMS)  # noqa: E731
+        plain = lambda: oq.prepare_vectors_plain(x, PREP_DIMS)  # noqa: E731
+        ms = device_ms(run, reps, match="prep_vectors_kernel")
+        plain_ms = device_ms(plain, max(5, reps // 10))
+        paced = cuda_ms(run, reps=reps)
+        paced_plain = cuda_ms(plain, reps=max(5, reps // 10))
+        nbytes = n * DIM * 4 + n * DIM * 3 + n * len(PREP_DIMS) * 4
+        ops = n * DIM * (8 + len(PREP_DIMS))
+        bound = max(nbytes / HBM_BYTES_S, ops / F32_OPS_S) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_S >= ops / F32_OPS_S \
+            else "operations"
+        log(f"  prep_vectors {n} x {DIM}, dims {PREP_DIMS}: kernel "
+            f"{ms:.5f} ms, plain {plain_ms:.5f} ms (device time, profiler);"
+            f" back-to-back calls by CUDA events: kernel {paced:.5f} ms, "
+            f"plain {paced_plain:.5f} ms; bound {bound:.5f} ms ({by}: "
+            f"{nbytes / 1e6:.3f} MB), no library call")
+        out.append((ms, plain_ms, None, bound, by))
+    return out
+
+
+def ingest_texts(rng):
+    """INGEST_DOCS x INGEST_CHUNKS chunk texts: 24-word zipf bag-of-words
+    over a 50k vocabulary (bench.py's synth_tokens), and their tokens."""
+    tokens = synth_tokens(rng, INGEST_DOCS * INGEST_CHUNKS)
+    texts = [" ".join(f"w{t}" for t in row) for row in tokens]
+    return tokens, texts
+
+
+def run_ingest(dev):
+    """The write path: Embedder.encode then store_document_vectors, one
+    call each per document. Returns (collection, embedder, tokens,
+    texts, prepare_vectors launches)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rag_application_tpu_torch.config import Config, EncoderConfig
+    from rag_application_tpu_torch.models.embedder import Embedder
+    from rag_application_tpu_torch.ops import quant as oq
+    from rag_application_tpu_torch.store.collection import Collection
+
+    t0 = time.perf_counter()
+    tokens, texts = ingest_texts(np.random.default_rng(5))
+    emb = Embedder(cfg=EncoderConfig(), max_len=EMB_LEN,
+                   batch_size=EMB_BATCH, device=dev)
+    col = Collection("user_smoke", Config(), device=dev)
+    nparams = sum(t.numel() for t in emb.state.params.values())
+    emb.encode(["warm up the encoder"])
+    torch.cuda.synchronize()
+    log(f"  set-up {time.perf_counter() - t0:.1f} s: {len(texts):,} chunk "
+        f"texts, encoder {nparams / 1e6:.2f}M params (random, seed 0)")
+
+    torch.cuda.reset_peak_memory_stats()
+    oq.prepare_vectors.launches = 0
+    enc_host, store_host, marks = [], [], []
+    busy = wall = None
+    t_start = time.perf_counter()
+    for i in range(INGEST_DOCS):
+        chunk_texts = texts[i * INGEST_CHUNKS:(i + 1) * INGEST_CHUNKS]
+        chunks = [{"text": t, "page": i} for t in chunk_texts]
+        prof = None
+        if i == INGEST_DOCS - 1:  # the last document, under the profiler
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t_start
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        t0 = time.perf_counter()
+        vecs = emb.encode(chunk_texts)
+        ev[1].record()
+        t1 = time.perf_counter()
+        col.store_document_vectors(f"doc-{i}", chunks, vecs)
+        ev[2].record()
+        t2 = time.perf_counter()
+        enc_host.append(t1 - t0)
+        store_host.append(t2 - t1)
+        marks.append(ev)
+        if prof is not None:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+            wall = ev[0].elapsed_time(ev[2])
+            kern = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in kern) / 1e3
+    launches = oq.prepare_vectors.launches
+    # rates and means over the unprofiled documents
+    marks, enc_host, store_host = marks[:-1], enc_host[:-1], store_host[:-1]
+    enc_ev = [e[0].elapsed_time(e[1]) for e in marks]
+    store_ev = [e[1].elapsed_time(e[2]) for e in marks]
+    n = INGEST_DOCS * INGEST_CHUNKS
+    timed = (INGEST_DOCS - 1) * INGEST_CHUNKS
+    log(f"  {INGEST_DOCS} documents x {INGEST_CHUNKS} chunks = {n:,} chunks;"
+        f" the first {INGEST_DOCS - 1} documents in {total_s:.2f} s -> "
+        f"{timed / total_s:,.0f} chunks/s")
+    log(f"  per document: encode {np.mean(enc_ev):.3f} ms (CUDA events; "
+        f"host {np.mean(enc_host) * 1e3:.3f} ms, median "
+        f"{np.median(enc_host) * 1e3:.3f}), store {np.mean(store_ev):.3f} ms"
+        f" (CUDA events; host {np.mean(store_host) * 1e3:.3f} ms, median "
+        f"{np.median(store_host) * 1e3:.3f})")
+    log(f"[profile] one ingested document: {wall:.3f} ms wall (CUDA "
+        f"events); device busy {busy:.3f} ms ({busy / wall:.1%}), idle "
+        f"{1 - busy / wall:.1%}")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"  {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<4d} "
+            f"{e.key[:90]}")
+    log(f"  device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"(peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB); "
+        f"prepare_vectors launches {launches} (one per document: "
+        f"{INGEST_DOCS}); encoder cache {len(emb.cache)} entries")
+    if launches != INGEST_DOCS:
+        raise AssertionError(f"prepare_vectors launched {launches} times "
+                             f"for {INGEST_DOCS} documents")
+    if col.chunk_count() != n or col.dense.size != n:
+        raise AssertionError(f"stored {col.chunk_count()} chunks, not {n}")
+    return col, emb, tokens, texts, launches
+
+
+def noisy_texts(tokens, idx, seed):
+    """Stored chunks with ~TOK_FLIP of their words resampled (bench.py's
+    noisy_tokens)."""
+    r = np.random.default_rng(seed)
+    t = tokens[idx].copy()
+    flip = r.random(t.shape) < TOK_FLIP
+    t[flip] = r.integers(0, VOCAB, int(flip.sum()))
+    return [" ".join(f"w{w}" for w in row) for row in t]
+
+
+def exact_scores(dense, q, rows):
+    """f32 dense scores of normalized queries ``q`` (Q, d) against
+    ``rows`` (Q, k) of the bf16 plane, as the final rescore computes
+    them."""
+    import torch
+
+    qn = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True),
+                         min=1e-12)
+    r = torch.as_tensor(rows, device=q.device).long()
+    return (dense.vecs[r].float() * qn[:, None, :]).sum(-1)
+
+
+def run_tokens(col, emb, tokens):
+    """The tokens wire over the ingested Collection; returns (ms/batch
+    list, recall@10, near-ties, launches, (scan, bm25) max abs err of
+    the path's launches against their plain versions)."""
+    import torch
+
+    from rag_application_tpu_torch.ops import bm25 as ob
+    from rag_application_tpu_torch.ops import fused_topk as ft
+
+    col.bind_query_encoder(emb)
+    n = col.dense.size
+    rng = np.random.default_rng(9)
+    batches = []
+    for b in range(TOK_BATCHES):
+        idx = rng.integers(0, n, size=TOK_BATCH)
+        batches.append((idx, noisy_texts(tokens, idx, 600 + b)))
+    # warm-up at the batch shape (and the sparse rebuild after ingest)
+    col.hybrid_search_text_batch(batches[0][1], K)
+    torch.cuda.synchronize()
+
+    ft.scan_sheet.launches = 0
+    ob.bm25_match_scores.launches = 0
+    times, results = [], []
+    for _, texts in batches:
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        hits = col.hybrid_search_text_batch(texts, K)
+        ev1.record()
+        torch.cuda.synchronize()
+        times.append((ev0.elapsed_time(ev1),
+                      (time.perf_counter() - t0) * 1e3))
+        results.append(hits)
+    launches = {"fused_scan": ft.scan_sheet.launches,
+                "bm25_match": ob.bm25_match_scores.launches}
+    log(f"  hybrid_search_text_batch, {TOK_BATCHES} batches of {TOK_BATCH}: "
+        f"ms/batch (CUDA events) {[round(t[0], 2) for t in times]}, host "
+        f"{[round(t[1], 2) for t in times]}; launches {launches}")
+    # the path's own kernel launches (the cascade's bf16 prefix scan, the
+    # int8 scan, the BM25 match at the collection's pool) against plain
+    with recording(ft, "scan_sheet") as scans, \
+            recording(ob, "bm25_match_scores") as matches:
+        col.hybrid_search_text_batch(batches[0][1], K)
+    errs = [check_recorded("tokens wire", scans, matches)]
+
+    # decomposition of one batch: host tokenize, sparse query encode,
+    # upload of the ids, device (encoder forward + funnel)
+    texts = batches[1][1]
+    fused = col._fused
+    t0 = time.perf_counter()
+    ids, amask = emb.tokenizer.encode_batch(texts, emb.max_len)
+    t_tok = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    sq = col.sparse.encode_queries(texts)
+    torch.cuda.synchronize()
+    t_sparse = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ids_d = torch.from_numpy(ids).to(col.device)
+    am_d = torch.from_numpy(amask).to(col.device)
+    torch.cuda.synchronize()
+    t_up = (time.perf_counter() - t0) * 1e3
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    fused.search_tokens_prepared((ids_d, am_d, sq), K,
+                                 funnel=col._funnel(None, True))
+    ev1.record()
+    torch.cuda.synchronize()
+    log(f"  one batch apart: host tokenize {t_tok:.2f} ms, sparse query "
+        f"encode {t_sparse:.2f} ms, upload {t_up:.3f} ms ({ids.nbytes + amask.nbytes:,} B),"
+        f" device (encoder + funnel) {ev0.elapsed_time(ev1):.2f} ms")
+
+    # the tokens wire against encode-then-search, batch by batch
+    ties, worst_gap, compared = 0, 0.0, 0
+    q_first = None
+    for (idx, texts), tok_hits in zip(batches, results):
+        vecs = emb.encode(texts)
+        vec_hits = col.hybrid_search_batch(vecs, texts, K)
+        ids_b, am_b = emb.tokenizer.encode_batch(texts, emb.max_len)
+        q_tok = emb.state.model.apply(
+            emb.state.params, torch.from_numpy(ids_b).to(col.device),
+            torch.from_numpy(am_b).to(col.device))
+        q_vec = torch.from_numpy(vecs).to(col.device)
+        if q_first is None:
+            q_first = q_tok
+        dq = torch.linalg.vector_norm(q_tok - q_vec, dim=-1)
+        for qi, (a, b) in enumerate(zip(vec_hits, tok_hits)):
+            ra, rb = [h.row for h in a], [h.row for h in b]
+            compared += 1
+            if ra == rb:
+                continue
+            if len(ra) != len(rb):
+                raise AssertionError(f"tokens wire: {len(rb)} hits vs "
+                                     f"{len(ra)} (query {qi})")
+            sa = exact_scores(col.dense, q_vec[qi:qi + 1], [ra])[0]
+            sb = exact_scores(col.dense, q_vec[qi:qi + 1], [rb])[0]
+            gap = (sa - sb).abs().max().item()
+            tol = 2.01 * dq[qi].item() + 1e-5
+            if gap > tol:
+                raise AssertionError(
+                    f"tokens wire rows differ beyond a near-tie (query {qi}"
+                    f": gap {gap:.3g} > {tol:.3g}): {ra} vs {rb}")
+            ties += 1
+            worst_gap = max(worst_gap, gap)
+    log(f"  tokens wire vs encode-then-search on {compared} queries: "
+        f"{ties} near-ties (worst positional score gap {worst_gap:.3g}; a "
+        f"flip needs a gap <= 2 |q_tok - q_vec|, max |dq| "
+        f"{dq.max().item():.3g} in the last batch)")
+
+    exact = exact_top_ids(col.dense, q_first[:N_EVAL], K)
+    got = [[h.row for h in hits] for hits in results[0][:N_EVAL]]
+    recall = float(np.mean([np.isin(exact[r], got[r]).mean()
+                            for r in range(N_EVAL)]))
+    log(f"  recall@10 vs exact (encoded queries over the bf16 plane) on "
+        f"{N_EVAL} queries: {recall:.4f}")
+
+    # delete one document; the masked scan must never return its rows
+    victim = results[0][0][0].payload["document_id"]
+    before = col.chunk_count()
+    rows = col.payloads.rows_where(document_id=victim)
+    removed = col.delete_document(victim)
+    texts = batches[0][1]
+    ids_b, am_b = emb.tokenizer.encode_batch(texts, emb.max_len)
+    _, raw = col._fused.search_tokens(ids_b, texts, K, attn_mask=am_b,
+                                      funnel=col._funnel(None, True))
+    with recording(ft, "scan_sheet") as scans, \
+            recording(ob, "bm25_match_scores") as matches:
+        after_hits = col.hybrid_search_text_batch(texts, K)
+    if not all(args[3] is not None for args, _, _ in scans):
+        raise AssertionError("a scan after delete_document ran unmasked")
+    errs.append(check_recorded("after delete_document", scans, matches))
+    leaked = int(np.isin(raw.cpu().numpy(), rows).sum())
+    from_victim = sum(h.payload["document_id"] == victim
+                      for hits in after_hits for h in hits)
+    log(f"  delete_document({victim!r}): removed {removed}, chunk_count "
+        f"{before} -> {col.chunk_count()}; next batch: {leaked} raw rows and "
+        f"{from_victim} hits from it; masked scan path "
+        f"{getattr(ft.fused_scan_topk, 'last_path', None)}")
+    if removed != INGEST_CHUNKS or col.chunk_count() != before - \
+            INGEST_CHUNKS or leaked or from_victim:
+        raise AssertionError("delete_document left rows or hits behind")
+    return times, recall, ties, launches, tuple(map(max, zip(*errs)))
+
 
 
 def bf16_ulp(x: float) -> float:
@@ -808,10 +1294,18 @@ def main() -> int:
             if "registers" in line or "spill" in line or line.startswith("=="):
                 log("  " + line.rstrip())
 
+    from rag_application_tpu_torch.ops import quant as oq
+
+    oq.prepare_vectors.launches = 0
     dense, cap, sparse, tokens, rng, t_dense, t_sparse = build_tables(dev)
+    table_preps = oq.prepare_vectors.launches
     log(f"[tables] dense {N}x{DIM} built in {t_dense:.1f} s, sparse {N} "
         f"docs in {t_sparse:.1f} s; device memory "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; prepare_vectors "
+        f"launches {table_preps} ({N // PREP_SLAB} slabs + the capacity "
+        f"twin)")
+    if table_preps != N // PREP_SLAB + 1:
+        raise AssertionError(f"build_tables: {table_preps} prep launches")
 
     log("[check] kernel vs plain on the card")
     q, texts = make_queries(dense, tokens, rng, 1)
@@ -839,6 +1333,31 @@ def main() -> int:
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the path")
     del dense, sparse, tokens, q, texts, bm25_args
+    torch.cuda.empty_cache()
+
+    log("[prep-check] prepare_vectors kernel vs plain on the card")
+    prep_err = check_prep(dev)
+    log(f"[prep-time] prepare_vectors at the slab and document shapes "
+        f"({card}); build_tables launched it {table_preps} times")
+    _, prep_t = time_prep(dev)  # the JSON line keeps the ingest's shape
+    torch.cuda.empty_cache()
+    log(f"[ingest] Collection.store_document_vectors(Embedder.encode(...)), "
+        f"Config() + EncoderConfig() defaults, {INGEST_DOCS} documents x "
+        f"{INGEST_CHUNKS} chunks ({card})")
+    col, emb, ing_tokens, _, prep_launches = run_ingest(dev)
+    log(f"[tokens] hybrid_search_text_batch over {col.dense.size:,} chunks, "
+        f"{TOK_BATCHES} batches of {TOK_BATCH} ({card})")
+    tok_times, tok_recall, _, tok_launches, (tok_scan_err, tok_bm25_err) = \
+        run_tokens(col, emb, ing_tokens)
+    scan_err = max(scan_err, tok_scan_err)
+    bm25_err = max(bm25_err, tok_bm25_err)
+    if tok_recall < 0.95:
+        raise AssertionError(f"tokens wire recall@10 {tok_recall:.4f} < 0.95")
+    for name, n in tok_launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"tokens wire")
+    del col, emb, ing_tokens
     torch.cuda.empty_cache()
 
     log("[gen-check] decode_attn kernel vs plain on the card")
@@ -872,6 +1391,9 @@ def main() -> int:
         entry("decode_attn", "rag_application_tpu_torch/csrc/decode_attn.cu",
               "rag_application_tpu/ops/decode_attn.py:86", attn_launches,
               attn_err, attn_t),
+        entry("prep_vectors", "rag_application_tpu_torch/csrc/prep_vectors.cu",
+              "rag_application_tpu/ops/quant.py:66", prep_launches,
+              prep_err, prep_t),
     ]}), flush=True)
     log(f"{card}")
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..config import IndexConfig
-from ..ops.quant import prepare_vectors_xla, quantize_int8
+from ..ops.quant import prepare_vectors, quantize_int8
 from ..ops.topk import blocked_topk, gather_rescore
 from ..utils import DeviceLike, resolve_device
 
@@ -119,7 +119,9 @@ class DenseIndex:
         if self.size + n > self.capacity:
             self._grow(self.size + n)
         start, end = self.size, self.size + n
-        norm, i8, inv = prepare_vectors_xla(xf, self.cfg.matryoshka_dims)
+        # one prep pass (the CUDA kernel on the card) in every storage
+        # mode; capacity mode keeps only its inv_norms, as the reference
+        norm, i8, inv = prepare_vectors(xf, self.cfg.matryoshka_dims)
         if self.vecs is not None:
             self.vecs[start:end] = norm
         if self.int8 is not None:

@@ -2,6 +2,8 @@ from .topk import blocked_topk, gather_rescore, merge_topk, stable_topk
 from .quant import (
     dequantize_int8,
     matryoshka_inv_norms,
+    prepare_vectors,
+    prepare_vectors_plain,
     prepare_vectors_xla,
     quantize_int8,
 )
@@ -22,6 +24,8 @@ __all__ = [
     "quantize_int8",
     "dequantize_int8",
     "matryoshka_inv_norms",
+    "prepare_vectors",
+    "prepare_vectors_plain",
     "prepare_vectors_xla",
     "bm25_impact_weights",
     "bm25_match_scores",

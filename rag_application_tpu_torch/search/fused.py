@@ -1,10 +1,12 @@
 """The hybrid query funnel: matryoshka cascade, int8 scan, BM25, exact
 rescore and final fusion over one query batch.
 
-Port of `rag_application_tpu/search/fused.py:31-494,573-579`. The JAX
-package traces the funnel into one XLA program; PyTorch runs eagerly, so
-`fused_core` is a plain function on device tensors and a query batch is
-one call of it.
+Port of `rag_application_tpu/search/fused.py`. The JAX package traces the
+funnel into one XLA program; PyTorch runs eagerly, so `fused_core` is a
+plain function on device tensors and a query batch is one call of it.
+The tokens wire (`bind_encoder`, `search_tokens*`) runs the bound text
+encoder's forward and then `fused_core` back to back on the device, with
+only int32 token ids uploaded.
 
 `FusedSpec.scan_impl` keeps the reference's values, with their port
 meaning:
@@ -411,6 +413,62 @@ class FusedSearcher:
             prefix_int8=d.prefix_int8,
             int8_recip=getattr(d, "int8_recip", None),
         )
+
+    # ------------------------------------------------------ tokens wire
+    #
+    # Clients send text. Uploading int32 token ids instead of f32 vectors
+    # cuts the upload ~6x at 768-d, and the encoder forward runs on the
+    # device right before the funnel.
+
+    def bind_encoder(self, model, params, *, pad_id: int = 0) -> None:
+        """Attach the on-device query encoder for the tokens wire.
+        ``model.apply(params, ids, mask)`` must yield (Q, dim) embeddings
+        (models/encoder.py::TextEncoder). A model that owns its weights
+        (``model.owns``) must be given those weights or None."""
+        owns = getattr(model, "owns", None)
+        if owns is not None and not owns(params):
+            raise ValueError("bind_encoder: params are not the model's own; "
+                             "load them with load_state_dict")
+        self._enc_model = model
+        self._enc_params = params
+        self._enc_pad = pad_id
+
+    def prepare_tokens(self, token_ids, query_texts=None, attn_mask=None):
+        """Upload int32 token ids (+ host-side sparse query encoding).
+        ``attn_mask`` overrides the default ``ids != pad_id`` mask."""
+        dev = self.dense.device
+        ids = torch.as_tensor(token_ids).to(dev, torch.int32)
+        if attn_mask is not None:
+            attn_mask = torch.as_tensor(attn_mask).to(dev, torch.bool)
+        sparse_queries = None
+        if (self.sparse is not None and query_texts is not None
+                and len(self.sparse) > 0):
+            sparse_queries = self.sparse.encode_queries(list(query_texts))
+        return ids, attn_mask, sparse_queries
+
+    def search_tokens_prepared(self, prepared, k: int = 10, *,
+                               filter_mask=None, use_matryoshka: bool = True,
+                               funnel: Optional[FunnelConfig] = None):
+        """Encoder forward, then the fused funnel, on the device."""
+        if getattr(self, "_enc_model", None) is None:
+            raise ValueError("call bind_encoder(model, params) first")
+        ids, attn_mask, sparse_queries = prepared
+        mask = (ids != self._enc_pad) if attn_mask is None else attn_mask
+        q = self._enc_model.apply(self._enc_params, ids, mask).float()
+        return self.search_prepared(
+            (q, sparse_queries), k, filter_mask=filter_mask,
+            use_matryoshka=use_matryoshka, funnel=funnel)
+
+    def search_tokens(self, token_ids, query_texts=None, k: int = 10, *,
+                      attn_mask=None, filter_mask=None,
+                      use_matryoshka: bool = True,
+                      funnel: Optional[FunnelConfig] = None):
+        """Text-in search: token ids cross the wire, the device encodes
+        and retrieves."""
+        prepared = self.prepare_tokens(token_ids, query_texts, attn_mask)
+        return self.search_tokens_prepared(
+            prepared, k, filter_mask=filter_mask,
+            use_matryoshka=use_matryoshka, funnel=funnel)
 
     def search(self, query_embeddings, query_texts=None, k: int = 10, *,
                filter_mask=None, use_matryoshka: bool = True,

@@ -7,9 +7,10 @@ against the reference on them), whatever rounding their insert paths
 differ by. The arrays come from `np.asarray` of the JAX index's device
 arrays; bf16 planes arrive as `ml_dtypes.bfloat16`, which
 `torch.from_numpy` refuses, so they are carried as their ``.view(np.uint16)``
-bits and rebuilt with ``.view(torch.bfloat16)``. The decoder's weights
-are carried the same way (`decoder_params_from_jax`), so both packages run
-the same model. This module imports no JAX.
+bits and rebuilt with ``.view(torch.bfloat16)``. The decoder's and the
+text encoder's weights are carried the same way (`decoder_params_from_jax`,
+`encoder_params_from_jax`), so both packages run the same model. This
+module imports no JAX.
 """
 
 from __future__ import annotations
@@ -19,11 +20,11 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from .config import IndexConfig, SparseConfig
+from .config import EncoderConfig, IndexConfig, SparseConfig
 from .index.dense import DenseIndex
 from .index.sparse import SparseIndex
 from .models.decoder import DecoderConfig
-from .utils import DeviceLike
+from .utils import DeviceLike, resolve_device
 
 
 def _tensor(a: Optional[np.ndarray], device) -> Optional[torch.Tensor]:
@@ -130,3 +131,57 @@ def decoder_params_from_jax(params: Mapping[str, Any], cfg: DecoderConfig,
         out[name] = (bf16_from_bits(a, device) if a.dtype == np.uint16
                      else _tensor(a, device))
     return out
+
+
+def encoder_params_from_jax(params: Mapping[str, Any], cfg: EncoderConfig,
+                            device: DeviceLike = None
+                            ) -> Dict[str, torch.Tensor]:
+    """The port's `TextEncoder` state (name -> f32 tensor, for
+    `load_state_dict`) from a flax `TextEncoder` param tree given as
+    numpy (every leaf f32, with or without the top-level ``"params"``).
+    The q/k/v kernels (hidden, heads, head_dim) and biases (heads,
+    head_dim) become one (hidden, 3*hidden) product and its bias; the
+    output kernel (heads, head_dim, hidden) a (hidden, hidden) one."""
+    p = params.get("params", params)
+    h = cfg.hidden_dim
+    dev = resolve_device(device)
+
+    def leaf(*path) -> np.ndarray:
+        node: Any = p
+        for k in path:
+            node = node[k]
+        a = np.asarray(node)
+        if a.dtype != np.float32:
+            raise TypeError(f"{'/'.join(path)}: f32 leaves expected, got "
+                            f"{a.dtype}")
+        return a
+
+    out: Dict[str, np.ndarray] = {
+        "token_embed": leaf("token_embed", "embedding"),
+        "pos_embed": leaf("pos_embed", "embedding"),
+        "final_ln_scale": leaf("final_ln", "scale"),
+        "final_ln_bias": leaf("final_ln", "bias"),
+        "proj_w": leaf("proj", "kernel"),
+        "proj_b": leaf("proj", "bias"),
+    }
+    for i in range(cfg.num_layers):
+        lp = f"layer_{i}"
+        att = (lp, "MultiHeadDotProductAttention_0")
+        pre = f"layers.{i}."
+        out[pre + "ln1_scale"] = leaf(lp, "LayerNorm_0", "scale")
+        out[pre + "ln1_bias"] = leaf(lp, "LayerNorm_0", "bias")
+        out[pre + "ln2_scale"] = leaf(lp, "LayerNorm_1", "scale")
+        out[pre + "ln2_bias"] = leaf(lp, "LayerNorm_1", "bias")
+        out[pre + "qkv_w"] = np.concatenate(
+            [leaf(*att, n, "kernel").reshape(h, h)
+             for n in ("query", "key", "value")], axis=1)
+        out[pre + "qkv_b"] = np.concatenate(
+            [leaf(*att, n, "bias").reshape(h) for n in ("query", "key",
+                                                        "value")])
+        out[pre + "out_w"] = leaf(*att, "out", "kernel").reshape(h, h)
+        out[pre + "out_b"] = leaf(*att, "out", "bias")
+        out[pre + "mlp1_w"] = leaf(lp, "Dense_0", "kernel")
+        out[pre + "mlp1_b"] = leaf(lp, "Dense_0", "bias")
+        out[pre + "mlp2_w"] = leaf(lp, "Dense_1", "kernel")
+        out[pre + "mlp2_b"] = leaf(lp, "Dense_1", "bias")
+    return {name: _tensor(a, dev) for name, a in out.items()}

@@ -29,7 +29,8 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # ops (incl. decode_attn), index, search, kernels, native (incl.
-    # wordpiece_lib), models (decoder, wordpiece), llm (router, local),
-    # utils, config, state, ...
-    assert int(out.stdout.strip().splitlines()[-1]) >= 29
+    # ops (incl. decode_attn), index (incl. payload), search (incl.
+    # params, rerank), kernels, native (incl. wordpiece_lib), models
+    # (decoder, wordpiece, encoder, embedder, tokenizer, cache), store
+    # (collection), llm (router, local), utils, config, state, ...
+    assert int(out.stdout.strip().splitlines()[-1]) >= 38
