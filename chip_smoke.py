@@ -13,9 +13,11 @@
 4. Kernel vs plain, on the card: each kernel wrapper against its plain
    PyTorch version at main-path shapes (8 corpus blocks, the full
    8192-query batch) — the scan on all reduce paths with/without mask,
-   strips 1/4, strip_outputs off/on, and a ragged tail; the BM25 match
-   on the batch's real candidates. Then kernel, plain and library times
-   at the full main-path shape, beside each kernel's bound.
+   strips 1/4, strip_outputs off/on, a ragged tail, and off-path depths
+   (d 100 to 2720, sliced tables, Q 1037); the BM25 match on the batch's
+   real candidates. Then kernel, plain and library times at the full
+   main-path shape, beside each kernel's bound, and the int8 scan at the
+   tokens wire's shape.
 5. Main path: FusedSearcher.search on batches of 8192 noisy corpus rows
    plus their token texts, with bench.py's funnel — 3 timed batches
    without the matryoshka cascade (the bench's serving setting), one
@@ -60,6 +62,11 @@
 Prints one `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {...}}`. Exits non-zero on any failure, and
 when CUDA is not available.
+
+    python3 chip_smoke.py --scan
+
+runs steps 1-2, the dense tables of step 3 and the scan's part of step 4
+alone (its checks and its times), for kernel work on the scan.
 """
 
 from __future__ import annotations
@@ -153,9 +160,30 @@ def build_tables(dev):
     """The main path's dense and sparse indexes, from seeds."""
     import torch
 
-    from rag_application_tpu_torch.config import IndexConfig, SparseConfig
-    from rag_application_tpu_torch.index.dense import DenseIndex
+    from rag_application_tpu_torch.config import SparseConfig
     from rag_application_tpu_torch.index.sparse import SparseIndex
+
+    dense, cap, t_dense = build_dense(dev)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    tokens = synth_tokens(rng, N)
+    sparse = SparseIndex(SparseConfig(candidate_pool=16,
+                                      max_postings_per_term=128), device=dev)
+    sparse.analyzer.vocab = {f"w{t}": t for t in range(VOCAB)}
+    sparse.add_pretokenized(tokens)
+    sparse.rebuild()
+    torch.cuda.synchronize()
+    t_sparse = time.perf_counter() - t0
+    return dense, cap, sparse, tokens, rng, t_dense, t_sparse
+
+
+def build_dense(dev):
+    """The main path's dense index and its capacity-mode twin of the first
+    CHECK_BLOCKS blocks, from a seed; returns (dense, cap, seconds)."""
+    import torch
+
+    from rag_application_tpu_torch.config import IndexConfig
+    from rag_application_tpu_torch.index.dense import DenseIndex
 
     t0 = time.perf_counter()
     dense = DenseIndex(IndexConfig(dim=DIM, matryoshka_dims=(128, 256),
@@ -179,22 +207,12 @@ def build_tables(dev):
     t_dense = time.perf_counter() - t0
     assert dense.size == dense.capacity == N and dense.fully_live
     assert cap.size == cap_rows and cap.int8_recip is not None
-
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(0)
-    tokens = synth_tokens(rng, N)
-    sparse = SparseIndex(SparseConfig(candidate_pool=16,
-                                      max_postings_per_term=128), device=dev)
-    sparse.analyzer.vocab = {f"w{t}": t for t in range(VOCAB)}
-    sparse.add_pretokenized(tokens)
-    sparse.rebuild()
-    torch.cuda.synchronize()
-    t_sparse = time.perf_counter() - t0
-    return dense, cap, sparse, tokens, rng, t_dense, t_sparse
+    return dense, cap, t_dense
 
 
 def make_queries(dense, tokens, rng, seed):
-    """Noisy copies of corpus rows (bench.py's make_queries) + texts."""
+    """Noisy copies of corpus rows (bench.py's make_queries) + their texts
+    (None without ``tokens``)."""
     import torch
 
     dev = dense.device
@@ -202,7 +220,8 @@ def make_queries(dense, tokens, rng, seed):
     rows = dense.vecs[torch.from_numpy(idx).to(dev)].float()
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = rows + 0.05 * torch.randn(rows.shape, generator=gen, device=dev)
-    texts = [" ".join(f"w{t}" for t in tokens[i]) for i in idx]
+    texts = None if tokens is None else [
+        " ".join(f"w{t}" for t in tokens[i]) for i in idx]
     return q, texts
 
 
@@ -289,16 +308,27 @@ def check_scan(dense, cap, q):
                 if not ok:
                     raise AssertionError(f"scan kernel != plain: {cases[-1]}")
     # shapes off the main path that the wrapper accepts: a query count
-    # that is no multiple of the kernel's 64-query tile, and depths that
-    # end inside a 64-byte shared-memory chunk
-    for dtype, d, mode in ((torch.int8, 100, "packed"),
-                           (torch.bfloat16, 72, "f32")):
-        x = torch.randn((2 * 4096, d), generator=gen, device=dev)
+    # that is no multiple of the kernels' query tiles (128 and 64), depths
+    # that end inside a staged chunk (d % 16 != 0 takes the int8 kernel's
+    # 4-byte copies), corpora sliced from wider tables (row stride > d),
+    # and int8 depths past the resident query tile (d > 1024 at 128
+    # queries, > 2048 at 64), whose query chunks ride in the ring
+    for dtype, d, width, mode in (
+            (torch.int8, 100, 100, "packed"),
+            (torch.bfloat16, 72, 72, "f32"),
+            (torch.int8, 100, 116, "packed_scaled"),
+            (torch.int8, 100, 116, "int8_general"),
+            (torch.int8, 2048, 2064, "packed"),
+            (torch.int8, 2052, 2068, "packed_scaled"),
+            (torch.int8, 2720, 2736, "int8_general")):
+        x = torch.randn((2 * 4096, width), generator=gen, device=dev)
         x = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
-        qs = x[:1037] + 0.05 * torch.randn((1037, d), generator=gen,
-                                           device=dev)
+        qs = x[:1037, :d] + 0.05 * torch.randn((1037, d), generator=gen,
+                                               device=dev)
         if dtype == torch.int8:
-            c, qs, iv = quantize_int8(x), quantize_int8(qs), None
+            c, qs = quantize_int8(x)[:, :d], quantize_int8(qs)
+            iv = torch.rand(2 * 4096, generator=gen, device=dev) + 0.5 \
+                if mode == "packed_scaled" else None
         else:
             c, qs, iv = x.to(dtype), qs.to(dtype), torch.rand(
                 2 * 4096, generator=gen, device=dev) + 0.5
@@ -313,9 +343,10 @@ def check_scan(dense, cap, q):
               and torch.equal(ki, pi)) if dtype == torch.int8 else (
             err <= 2 * d * 2.0 ** -24 * 1.5
             and near_ties_ok(c, qs, iv, ki, pi, 4 * d * 2.0 ** -24 * 1.5))
-        cases.append(f"{dtype} d={d} Q=1037 valid_n=8000 mask strips=2 "
-                     f"strip_outputs=True path={mode}: max_abs_err {err:.3g}"
-                     f" id_mismatches {(ki != pi).sum().item()}")
+        cases.append(f"{dtype} d={d} ld={c.stride(0)} Q=1037 valid_n=8000 "
+                     f"mask strips=2 strip_outputs=True path={mode}: "
+                     f"max_abs_err {err:.3g} id_mismatches "
+                     f"{(ki != pi).sum().item()}")
         log("  " + cases[-1])
         if not ok:
             raise AssertionError(f"scan kernel != plain: {cases[-1]}")
@@ -459,11 +490,28 @@ def check_recorded(label, scans, matches):
     return scan_err, bm25_err
 
 
-def time_kernels(dense, q, bm25_args):
-    """Kernel, plain and library ms at the full main-path shapes."""
+def scan_bound(rows, queries, d, block):
+    """(bound ms, what bounds it) of the int8 packed scan: each input byte
+    read once and the sheet written once, against 2 Q N d int8 ops."""
+    nb = rows // block
+    nbytes = rows * d + queries * d + nb * queries * 128 * 8
+    ops = 2.0 * queries * rows * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / INT8_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def scan_ctas(queries, rows, block):
+    """Thread blocks of the int8 packed scan's grid (128-query tiles)."""
+    return -(-queries // 128) * (rows // block)
+
+
+def time_scan(dense, q):
+    """The scan's kernel, plain and library ms at the main-path shape (the
+    JSON line's entry), at the tokens wire's shape, and on the cascade's
+    bf16 prefix-128 path, each beside its bound."""
     import torch
 
-    from rag_application_tpu_torch.ops import bm25 as ob
     from rag_application_tpu_torch.ops import fused_topk as ft
     from rag_application_tpu_torch.ops.quant import quantize_int8
 
@@ -472,28 +520,55 @@ def time_kernels(dense, q, bm25_args):
     kw = dict(valid_n=None, block_rows=BLOCK, mode="packed", strips=1,
               strip_outputs=False)
     scan_ms = cuda_ms(lambda: ft.scan_sheet(dense.int8, q8, None, None,
-                                            **kw), reps=3)
+                                            **kw), reps=5)
     scan_plain_ms = cuda_ms(lambda: ft.scan_sheet_plain(
         dense.int8, q8, None, None, **kw), reps=1)
-    # yardstick: the int8 product alone (cuBLASLt via torch._int_mm)
+    # yardstick: the int8 product alone (cuBLASLt via torch._int_mm), which
+    # also writes the (Q, N) int32 score matrix the kernel never makes
     scan_lib_ms = cuda_ms(lambda: torch._int_mm(q8, dense.int8.t()), reps=3)
+    scan_bnd, scan_by = scan_bound(N, BATCH, DIM, BLOCK)
+    log(f"  fused_scan int8 packed, full shape ({N}x{DIM}, {BATCH} queries, "
+        f"block {BLOCK}, {scan_ctas(BATCH, N, BLOCK)} thread blocks): "
+        f"kernel {scan_ms:.3f} ms, plain {scan_plain_ms:.3f} ms, "
+        f"torch._int_mm {scan_lib_ms:.3f} ms, bound {scan_bnd:.3f} ms "
+        f"({scan_by}), kernel at {scan_bnd / scan_ms:.1%} of the bound")
+    torch.cuda.empty_cache()
+
+    # the tokens wire's int8 scan: 262,144 stored chunks, 256 queries
+    tok_rows, tok_q = 262144, 256
+    tok_ms = cuda_ms(lambda: ft.scan_sheet(dense.int8[:tok_rows],
+                                           q8[:tok_q], None, None, **kw),
+                     reps=50)
+    tok_bnd, tok_by = scan_bound(tok_rows, tok_q, DIM, BLOCK)
+    log(f"  fused_scan int8 packed, tokens-wire shape ({tok_rows}x{DIM}, "
+        f"{tok_q} queries, block {BLOCK}, "
+        f"{scan_ctas(tok_q, tok_rows, BLOCK)} thread blocks on 132 SMs): "
+        f"kernel {tok_ms:.4f} ms, bound {tok_bnd:.4f} ms ({tok_by})")
+
+    # the cascade's bf16 prefix-128 scan (general path, CUDA cores)
     nb = N // BLOCK
-    # the cascade's bf16 prefix-128 scan (general path), for the record
     qb = qn.to(torch.bfloat16)[:, :128]
     inv0 = dense.inv_norms[:, 0].contiguous()
     f32_ms = cuda_ms(lambda: ft.scan_sheet(
         dense.vecs[:, :128], qb, inv0, None, **{**kw, "mode": "f32"}),
         reps=3)
+    # yardstick: the bf16 product alone, (Q, N) bf16 scores written out
+    f32_lib_ms = cuda_ms(lambda: torch.matmul(qb, dense.vecs[:, :128].t()),
+                         reps=3)
     f32_bound = max((N * 128 * 2 + N * 4 + nb * BATCH * 128 * 8)
                     / HBM_BYTES_S, 2.0 * BATCH * N * 128 / BF16_OPS_S) * 1e3
     log(f"  fused_scan bf16 prefix-128 path (cascade), full shape: kernel "
-        f"{f32_ms:.3f} ms, bound {f32_bound:.3f} ms")
-    scan_bytes = N * DIM + BATCH * DIM + nb * BATCH * 128 * 8
-    scan_ops = 2.0 * BATCH * N * DIM
-    scan_bound = max(scan_bytes / HBM_BYTES_S, scan_ops / INT8_OPS_S) * 1e3
-    scan_by = ("operations" if scan_ops / INT8_OPS_S > scan_bytes
-               / HBM_BYTES_S else "bytes")
+        f"{f32_ms:.3f} ms, torch.matmul {f32_lib_ms:.3f} ms, bound "
+        f"{f32_bound:.3f} ms")
+    torch.cuda.empty_cache()
+    return scan_ms, scan_plain_ms, scan_lib_ms, scan_bnd, scan_by
 
+
+def time_kernels(dense, q, bm25_args):
+    """Kernel, plain and library ms at the full main-path shapes."""
+    from rag_application_tpu_torch.ops import bm25 as ob
+
+    scan_t = time_scan(dense, q)
     dt, dw, qt, qv = bm25_args
     m_ms = cuda_ms(lambda: ob.bm25_match_scores(dt, dw, qt, qv), reps=20)
     m_plain_ms = cuda_ms(lambda: ob.bm25_match_scores_plain(dt, dw, qt, qv),
@@ -505,13 +580,9 @@ def time_kernels(dense, q, bm25_args):
     m_bound = max(m_bytes / HBM_BYTES_S, m_ops / F32_OPS_S) * 1e3
     m_by = "bytes" if m_bytes / HBM_BYTES_S >= m_ops / F32_OPS_S \
         else "operations"
-    log(f"  fused_scan full shape ({N}x{DIM} int8, {BATCH} queries): "
-        f"kernel {scan_ms:.3f} ms, plain {scan_plain_ms:.3f} ms, "
-        f"torch._int_mm {scan_lib_ms:.3f} ms, bound {scan_bound:.3f} ms")
     log(f"  bm25_match {tuple(dt.shape)}: kernel {m_ms:.4f} ms, plain "
         f"{m_plain_ms:.4f} ms, bound {m_bound:.4f} ms")
-    return ((scan_ms, scan_plain_ms, scan_lib_ms, scan_bound, scan_by),
-            (m_ms, m_plain_ms, None, m_bound, m_by))
+    return scan_t, (m_ms, m_plain_ms, None, m_bound, m_by)
 
 
 def run_main_path(dense, sparse, tokens, rng):
@@ -1268,6 +1339,22 @@ def run_local_llm(params, cfg, dev):
     return da.decode_attend_int8.launches
 
 
+def scan_only(dev, card) -> int:
+    """`--scan`: the scan kernel's checks and times alone, for kernel work
+    on the scan (dense tables only; no search, write path or generation)."""
+    dense, cap, t_dense = build_dense(dev)
+    log(f"[tables] dense {N}x{DIM} built in {t_dense:.1f} s")
+    q, _ = make_queries(dense, None, np.random.default_rng(0), 1)
+    log("[check] scan kernel vs plain on the card")
+    _, n_cases = check_scan(dense, cap, q)
+    log(f"[check] {n_cases} scan cases passed")
+    del cap
+    log(f"[time] scan at the main-path shapes ({card})")
+    time_scan(dense, q)
+    log(card)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1291,8 +1378,11 @@ def main() -> int:
         f"{t_build:.1f} s")
     with open(f"{kb.BUILD_DIR}/build.log") as f:
         for line in f:
-            if "registers" in line or "spill" in line or line.startswith("=="):
+            if ("registers" in line or "spill" in line or "entry function"
+                    in line or line.startswith("==")):
                 log("  " + line.rstrip())
+    if sys.argv[1:] == ["--scan"]:
+        return scan_only(dev, card)
 
     from rag_application_tpu_torch.ops import quant as oq
 

@@ -23,13 +23,14 @@ from rag_application_tpu_torch.state import bf16_from_bits
 F32_ATOL = 3e-5
 
 
-def _setup(rng, path, n):
+def _setup(rng, path, n, d=None, nq=5):
     """(corpus, queries, inv) numpy inputs of one reduce path."""
-    d = 1024 if path == "int8_general" else 128
+    if d is None:
+        d = 1024 if path == "int8_general" else 128
     x = (rng.standard_normal((n, d))
          * np.exp(-0.01 * np.arange(d))).astype(np.float32)
     x /= np.linalg.norm(x, axis=-1, keepdims=True)
-    qs = x[:5] + 0.05 * rng.standard_normal((5, d)).astype(np.float32)
+    qs = x[:nq] + 0.05 * rng.standard_normal((nq, d)).astype(np.float32)
     qs /= np.linalg.norm(qs, axis=-1, keepdims=True)
     q8 = np.clip(np.round(qs * 127), -127, 127).astype(np.int8)
     if path in ("packed", "int8_general"):
@@ -117,6 +118,33 @@ def test_scan_sheet_matches_pallas(rng, path, strips, strip_outputs,
     else:
         np.testing.assert_array_equal(tids, jids)   # bit-equal
         np.testing.assert_array_equal(tv.view(np.int32), jv.view(np.int32))
+
+
+# depths at the CUDA int8 kernel's edges, which the chip checks hold it to
+# this plain version at: d = 100 ends inside a 16-byte unit (4-byte copies),
+# d = 2048 is past its resident query tile (query chunks ride in the ring);
+# 67 queries is no multiple of its 64- and 128-query tiles
+@pytest.mark.parametrize("path", ["packed", "packed_scaled", "int8_general"])
+@pytest.mark.parametrize("d", [100, 2048])
+def test_scan_sheet_matches_pallas_depths(rng, path, d):
+    if path == "int8_general":
+        # the fewest row groups whose packed keys overflow int32 at this d
+        rows = -(-2 ** 31 // (d * 127 * 127 + 1))
+        block, strips, strip_outputs = rows * 128, 1, False
+        n = block + 300
+    else:
+        block, strips, strip_outputs = 1024, 2, True
+        n = 2 * block + 300
+    corpus, queries, inv = _setup(rng, path, n, d=d, nq=67)
+    mask = rng.random(n) > 0.3
+    jv, jids, tv, tids, *_ = _run(corpus, queries, inv, mask,
+                                  block_rows=block, strips=strips,
+                                  strip_outputs=strip_outputs)
+    assert tf.fused_scan_topk.last_path == path
+    bins = 128 * (strips if strip_outputs else 1)
+    assert tv.shape == (67, -(-n // block) * bins)
+    np.testing.assert_array_equal(tids, jids)   # bit-equal
+    np.testing.assert_array_equal(tv.view(np.int32), jv.view(np.int32))
 
 
 @pytest.mark.parametrize("path", ["packed", "f32"])
