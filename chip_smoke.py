@@ -13,17 +13,22 @@
 4. Kernel vs plain, on the card: each kernel wrapper against its plain
    PyTorch version at main-path shapes (8 corpus blocks, the full
    8192-query batch) — the scan on all reduce paths with/without mask,
-   strips 1/4, strip_outputs off/on, a ragged tail, and off-path depths
-   (d 100 to 2720, sliced tables, Q 1037); the BM25 match on the batch's
-   real candidates. Then kernel, plain and library times at the full
-   main-path shape, beside each kernel's bound, and the int8 scan at the
-   tokens wire's shape.
+   strips 1/4, strip_outputs off/on, ragged tails, and off-path shapes
+   (int8 d 100 to 2720 and bf16 d 72 to 2176 at both query-tile sizes,
+   sliced tables, Q 1037; an f32 corpus and odd-d / odd-stride bf16 on
+   the CUDA-core kernel), each case asserting the kernel it took; the
+   BM25 match on the batch's real candidates. Then kernel, plain and
+   library times at the full main-path shapes, beside each kernel's
+   bound: the int8 scan and the cascade's bf16 prefix scan, each also at
+   the tokens wire's shape, and the CUDA-core kernel once.
 5. Main path: FusedSearcher.search on batches of 8192 noisy corpus rows
    plus their token texts, with bench.py's funnel — 3 timed batches
    without the matryoshka cascade (the bench's serving setting), one
    with the cascade and rrf fusion, one with dbsf. Checks recall@10
    against an exact oracle on 128 queries (>= 0.95) and that every
-   kernel of the path was launched.
+   kernel of the path was launched; one more cascade batch has each of
+   its scan and BM25 launches held against the plain version, the bf16
+   one on the bf16 tensor-core kernel.
 6. The write path and the tokens wire, at the repo's defaults
    (`Config()`: a 768-d index with bf16 + int8 planes and matryoshka dims
    (64, 128, 256); `EncoderConfig()`: vocab 30528, hidden 384, 6 layers,
@@ -156,6 +161,30 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def reset_scan_counts(ft) -> None:
+    """Set the scan wrapper's launch counts (total and by kernel) to 0."""
+    ft.scan_sheet.launches = 0
+    for route in ft.route_launches:
+        ft.route_launches[route] = 0
+
+
+def scan_counts(ft) -> dict:
+    """The scan wrapper's launches by entry of the `kernels` line: the
+    bf16 tensor-core kernel on its own; `fused_scan` is the int8 kernel
+    and the CUDA-core kernel, both behind `csrc/fused_scan.cu`'s entry."""
+    by = ft.route_launches
+    if sum(by.values()) != ft.scan_sheet.launches:
+        raise AssertionError(f"scan launches by kernel {by} do not add up to "
+                             f"{ft.scan_sheet.launches}")
+    return {"fused_scan": by["fused_scan_int8"] + by["fused_scan"],
+            "fused_scan_bf16": by["fused_scan_bf16"]}
+
+
+def rose(counts, before) -> list:
+    """The keys of ``counts`` that differ from the snapshot ``before``."""
+    return [k for k, v in counts.items() if v != before[k]]
+
+
 def build_tables(dev):
     """The main path's dense and sparse indexes, from seeds."""
     import torch
@@ -251,8 +280,9 @@ def exact_top_ids(dense, q, k):
 
 
 def check_scan(dense, cap, q):
-    """Kernel vs plain for every reduce path at main-path shapes.
-    Returns (max abs err over all cases, cases run)."""
+    """Kernel vs plain for every reduce path at main-path shapes, each
+    case asserting the kernel `scan_sheet` took. Returns (max abs err by
+    kernel, cases run)."""
     import torch
 
     from rag_application_tpu_torch.ops import fused_topk as ft
@@ -263,8 +293,23 @@ def check_scan(dense, cap, q):
     q8 = quantize_int8(qn)
     qb = qn.to(torch.bfloat16)
     gen = torch.Generator(device=dev).manual_seed(7)
-    worst = 0.0
+    worst = dict.fromkeys(ft.ROUTES, 0.0)
     cases = []
+
+    def both(want, c, qs, iv, mask, **kw):
+        """(kernel sheet, plain sheet, max abs err); the kernel's launch
+        must be on the route ``want``."""
+        before = dict(ft.route_launches)
+        kv, ki = ft.scan_sheet(c, qs, iv, mask, **kw)
+        took = rose(ft.route_launches, before)
+        if took != [want]:
+            raise AssertionError(f"scan took {took}, expected {want}: "
+                                 f"{c.dtype} x {qs.dtype}, d {c.shape[1]}")
+        pv, pi = ft.scan_sheet_plain(c, qs, iv, mask, **kw)
+        torch.cuda.synchronize()
+        err = (kv - pv).abs().max().item()
+        worst[want] = max(worst[want], err)
+        return kv, ki, pv, pi, err
 
     setups = [
         # (label, corpus, queries, inv, block)
@@ -274,26 +319,29 @@ def check_scan(dense, cap, q):
         ("bf16 prefix 128 + inv_norms", dense.vecs[:, :128], qb[:, :128],
          dense.inv_norms[:, 0].contiguous(), BLOCK),
     ]
-    # f32 path: each side within d * 2^-24 of the exact dot of unit rows
-    # scaled by the prefix norm, so the two within twice that
+    # f32 path: bf16 x bf16 products are exact in f32, so kernel and plain
+    # differ only in the order of the f32 sums. Each side is within
+    # d * 2^-24 of the exact dot of unit rows scaled by the prefix norm
+    # (one rounding of 2^-24 per term added; the tensor core adds 16 exact
+    # products per accumulation step, so even a truncating step of 2^-23
+    # leaves its side at (d / 16) * 2^-23 < d * 2^-24), the two within
+    # twice that
     f32_atol = 2 * 128 * 2.0 ** -24
     for label, corpus, qs, inv, block in setups:
         rows = min(corpus.shape[0], CHECK_BLOCKS * BLOCK)
         c = corpus[:rows]
         iv = inv[:rows] if inv is not None else None
+        want = "fused_scan_int8" if c.dtype == torch.int8 \
+            else "fused_scan_bf16"
         for masked in (False, True):
             mask = (torch.rand(rows, generator=gen, device=dev) > 0.2
                     if masked else None)
             for strips, so in ((1, False), (4, False), (4, True)):
                 mode = ft.reduce_path(c.dtype == torch.int8, iv is not None,
                                       c.shape[1], block, strips, so)
-                kw = dict(valid_n=None, block_rows=block, mode=mode,
-                          strips=strips, strip_outputs=so)
-                kv, ki = ft.scan_sheet(c, qs, iv, mask, **kw)
-                pv, pi = ft.scan_sheet_plain(c, qs, iv, mask, **kw)
-                torch.cuda.synchronize()
-                err = (kv - pv).abs().max().item()
-                worst = max(worst, err)
+                kv, ki, pv, pi, err = both(
+                    want, c, qs, iv, mask, valid_n=None, block_rows=block,
+                    mode=mode, strips=strips, strip_outputs=so)
                 mism = (ki != pi).sum().item()
                 if c.dtype == torch.int8:
                     ok = torch.equal(kv.view(torch.int32),
@@ -302,66 +350,100 @@ def check_scan(dense, cap, q):
                     ok = err <= f32_atol and near_ties_ok(
                         c, qs, iv, ki, pi, 2 * f32_atol)
                 cases.append(f"{label} mask={masked} strips={strips} "
-                             f"strip_outputs={so} path={mode}: max_abs_err "
-                             f"{err:.3g} id_mismatches {mism}")
+                             f"strip_outputs={so} path={mode} [{want}]: "
+                             f"max_abs_err {err:.3g} id_mismatches {mism}")
                 log("  " + cases[-1])
                 if not ok:
                     raise AssertionError(f"scan kernel != plain: {cases[-1]}")
-    # shapes off the main path that the wrapper accepts: a query count
-    # that is no multiple of the kernels' query tiles (128 and 64), depths
-    # that end inside a staged chunk (d % 16 != 0 takes the int8 kernel's
+    # shapes off the main path that the wrapper accepts, at Q 1037 (no
+    # multiple of the kernels' query tiles of 32, 64 and 128), valid_n
+    # inside the last block, a mask, and 2 strips with their own bins.
+    # int8: depths that end inside a staged chunk (d % 16 != 0 takes the
     # 4-byte copies), corpora sliced from wider tables (row stride > d),
-    # and int8 depths past the resident query tile (d > 1024 at 128
-    # queries, > 2048 at 64), whose query chunks ride in the ring
-    for dtype, d, width, mode in (
-            (torch.int8, 100, 100, "packed"),
-            (torch.bfloat16, 72, 72, "f32"),
-            (torch.int8, 100, 116, "packed_scaled"),
-            (torch.int8, 100, 116, "int8_general"),
-            (torch.int8, 2048, 2064, "packed"),
-            (torch.int8, 2052, 2068, "packed_scaled"),
-            (torch.int8, 2720, 2736, "int8_general")):
-        x = torch.randn((2 * 4096, width), generator=gen, device=dev)
+    # depths past the resident query tile (d > 1024 at 128 queries, > 2048
+    # at 64), whose query chunks ride in the ring. bf16 x bf16: d 72 ends
+    # inside a chunk, d 100 of a 116-wide table takes the 4-byte copies,
+    # both on 8 blocks (128-query tiles, row groups in shared memory); d 72
+    # and a 128-wide slice of a 768-wide table on 4 blocks and on 2 (too
+    # few thread blocks for the card at 128 queries a tile, then at 64: 64-
+    # and 32-query tiles with the A fragments in registers); d 256 and 768
+    # are 2 and 6 chunks a row group against the resident query tile, d
+    # 1280 (64-query tiles) and 2176 (32-query tiles) are past it. An f32
+    # corpus, and bf16 with an odd d or an odd row stride, which cp.async
+    # cannot copy, hold the CUDA-core kernel.
+    bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    for dtype, d, width, mode, blocks in (
+            (i8, 100, 100, "packed", 2),
+            (i8, 100, 116, "packed_scaled", 2),
+            (i8, 100, 116, "int8_general", 2),
+            (i8, 2048, 2064, "packed", 2),
+            (i8, 2052, 2068, "packed_scaled", 2),
+            (i8, 2720, 2736, "int8_general", 2),
+            (bf, 72, 72, "f32", 8),
+            (bf, 100, 116, "f32", 8),
+            (bf, 256, 272, "f32", 8),
+            (bf, 768, 768, "f32", 8),
+            (bf, 1280, 1296, "f32", 8),
+            (bf, 72, 72, "f32", 4),
+            (bf, 128, 768, "f32", 4),
+            (bf, 72, 72, "f32", 2),
+            (bf, 128, 768, "f32", 2),
+            (bf, 2176, 2192, "f32", 2),
+            (f32, 100, 116, "f32", 2),
+            (bf, 101, 101, "f32", 2),
+            (bf, 100, 117, "f32", 2)):
+        n = blocks * 4096
+        x = torch.randn((n, width), generator=gen, device=dev)
         x = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
         qs = x[:1037, :d] + 0.05 * torch.randn((1037, d), generator=gen,
                                                device=dev)
-        if dtype == torch.int8:
+        if dtype == i8:
             c, qs = quantize_int8(x)[:, :d], quantize_int8(qs)
-            iv = torch.rand(2 * 4096, generator=gen, device=dev) + 0.5 \
+            iv = torch.rand(n, generator=gen, device=dev) + 0.5 \
                 if mode == "packed_scaled" else None
+            want = "fused_scan_int8"
         else:
-            c, qs, iv = x.to(dtype), qs.to(dtype), torch.rand(
-                2 * 4096, generator=gen, device=dev) + 0.5
-        mask = torch.rand(2 * 4096, generator=gen, device=dev) > 0.2
-        kw = dict(valid_n=8000, block_rows=4096, mode=mode, strips=2,
-                  strip_outputs=True)
-        kv, ki = ft.scan_sheet(c, qs, iv, mask, **kw)
-        pv, pi = ft.scan_sheet_plain(c, qs, iv, mask, **kw)
-        err = (kv - pv).abs().max().item()
-        worst = max(worst, err)
+            qs = qs / torch.linalg.vector_norm(qs, dim=-1, keepdim=True)
+            c, qs = x.to(dtype)[:, :d], qs.to(dtype)
+            iv = torch.rand(n, generator=gen, device=dev) + 0.5
+            want = "fused_scan_bf16" if dtype == bf and d % 2 == 0 \
+                and width % 2 == 0 else "fused_scan"
+        mask = torch.rand(n, generator=gen, device=dev) > 0.2
+        kv, ki, pv, pi, err = both(
+            want, c, qs, iv, mask, valid_n=n - 192, block_rows=4096,
+            mode=mode, strips=2, strip_outputs=True)
+        # unit rows, inv in [0.5, 1.5): the f32 bound above, scaled by 1.5
         ok = (torch.equal(kv.view(torch.int32), pv.view(torch.int32))
-              and torch.equal(ki, pi)) if dtype == torch.int8 else (
+              and torch.equal(ki, pi)) if dtype == i8 else (
             err <= 2 * d * 2.0 ** -24 * 1.5
             and near_ties_ok(c, qs, iv, ki, pi, 4 * d * 2.0 ** -24 * 1.5))
-        cases.append(f"{dtype} d={d} ld={c.stride(0)} Q=1037 valid_n=8000 "
-                     f"mask strips=2 strip_outputs=True path={mode}: "
-                     f"max_abs_err {err:.3g} id_mismatches "
-                     f"{(ki != pi).sum().item()}")
+        cases.append(f"{dtype} d={d} ld={c.stride(0)} rows={n} Q=1037 "
+                     f"valid_n={n - 192} mask strips=2 strip_outputs=True "
+                     f"path={mode} [{want}]: max_abs_err {err:.3g} "
+                     f"id_mismatches {(ki != pi).sum().item()}")
         log("  " + cases[-1])
         if not ok:
             raise AssertionError(f"scan kernel != plain: {cases[-1]}")
     # ragged tail: valid_n bound + padded rows (what fused_scan_topk does)
     rows = CHECK_BLOCKS * BLOCK - 1000
+    kw = dict(valid_n=rows, block_rows=BLOCK, strips=1, strip_outputs=False)
     c = torch.nn.functional.pad(dense.int8[:rows], (0, 0, 0, 1000))
-    kw = dict(valid_n=rows, block_rows=BLOCK, mode="packed", strips=1,
-              strip_outputs=False)
-    kv, ki = ft.scan_sheet(c, q8, None, None, **kw)
-    pv, pi = ft.scan_sheet_plain(c, q8, None, None, **kw)
+    kv, ki, pv, pi, _ = both("fused_scan_int8", c, q8, None, None,
+                             mode="packed", **kw)
     if not (torch.equal(kv.view(torch.int32), pv.view(torch.int32))
             and torch.equal(ki, pi)):
         raise AssertionError("scan kernel != plain with valid_n")
     log(f"  int8 ragged tail valid_n={rows}: bit-equal")
-    return worst, len(cases) + 1
+    c = torch.nn.functional.pad(dense.vecs[:rows, :128], (0, 0, 0, 1000))
+    iv = torch.nn.functional.pad(dense.inv_norms[:rows, 0], (0, 1000))
+    kv, ki, pv, pi, err = both("fused_scan_bf16", c, qb[:, :128], iv, None,
+                               mode="f32", **kw)
+    if not (err <= f32_atol and ((ki < rows) | (kv <= ft.NEG)).all().item()
+            and near_ties_ok(c, qb[:, :128], iv, ki, pi, 2 * f32_atol)):
+        raise AssertionError("bf16 scan kernel != plain with valid_n")
+    log(f"  bf16 ragged tail valid_n={rows}: max_abs_err {err:.3g} "
+        f"id_mismatches {(ki != pi).sum().item()}")
+    return worst, len(cases) + 2
 
 
 def near_ties_ok(c, qs, inv, ki, pi, tol) -> bool:
@@ -423,18 +505,21 @@ def check_bm25(sparse, texts):
 
 
 @contextlib.contextmanager
-def recording(module, name):
-    """While the block runs, record ``(args, kwargs, result)`` of every
-    call of the kernel wrapper ``module.name`` (the wrapper still runs).
-    The wrapper counts its launches on its module-level name, so these
-    launches go to the recorder's own ``launches`` and the wrapper's
-    count is left as it was."""
+def recording(module, name, counts=None):
+    """While the block runs, record ``(args, kwargs, result, took)`` of
+    every call of the kernel wrapper ``module.name`` (the wrapper still
+    runs); ``took`` lists the keys of ``counts``, the wrapper's launch
+    counts by kernel, that rose during the call. The wrapper counts its
+    launches on its module-level name, so these launches go to the
+    recorder's own ``launches`` and the wrapper's count is left as it
+    was."""
     fn = getattr(module, name)
     calls = []
 
     def rec(*args, **kwargs):
+        before = dict(counts or {})
         out = fn(*args, **kwargs)
-        calls.append((args, kwargs, out))
+        calls.append((args, kwargs, out, rose(counts or {}, before)))
         return out
 
     rec.launches = 0
@@ -450,21 +535,27 @@ def check_recorded(label, scans, matches):
     against the plain version on the same inputs: int8 sheets bit-equal;
     f32 sheets within 2 d 2^-24 (each side within d 2^-24 of the exact
     dot of unit prefixes) with other ids only at near-ties; BM25
-    bit-equal. Returns (scan max abs err, bm25 max abs err)."""
+    bit-equal. Every int8 scan must have taken the int8 tensor-core
+    kernel and every bf16 scan the bf16 one. Returns (max abs err of the
+    int8 scans, of the bf16 scans, of the BM25 matches)."""
     import torch
 
     from rag_application_tpu_torch.ops import bm25 as ob
     from rag_application_tpu_torch.ops import fused_topk as ft
 
-    kinds = {args[0].dtype for args, _, _ in scans}
+    kinds = {args[0].dtype for args, _, _, _ in scans}
     if kinds != {torch.int8, torch.bfloat16} or not matches:
         raise AssertionError(f"{label}: recorded scans {kinds} and "
                              f"{len(matches)} bm25 matches")
-    scan_err = 0.0
-    for (c, qs, iv, mask), kw, (kv, ki) in scans:
+    want = {torch.int8: "fused_scan_int8", torch.bfloat16: "fused_scan_bf16"}
+    scan_err = dict.fromkeys(want, 0.0)
+    for (c, qs, iv, mask), kw, (kv, ki), took in scans:
+        if took != [want[c.dtype]]:
+            raise AssertionError(f"{label}: a {c.dtype} x {qs.dtype} scan "
+                                 f"took {took}, not {want[c.dtype]}")
         pv, pi = ft.scan_sheet_plain(c, qs, iv, mask, **kw)
         err = (kv - pv).abs().max().item()
-        scan_err = max(scan_err, err)
+        scan_err[c.dtype] = max(scan_err[c.dtype], err)
         mism = (ki != pi).sum().item()
         if c.dtype == torch.int8:
             ok = torch.equal(kv.view(torch.int32),
@@ -472,7 +563,8 @@ def check_recorded(label, scans, matches):
         else:
             atol = 2 * c.shape[1] * 2.0 ** -24
             ok = err <= atol and near_ties_ok(c, qs, iv, ki, pi, 2 * atol)
-        line = (f"{label}: scan {c.dtype} {tuple(c.shape)} Q {qs.shape[0]} "
+        line = (f"{label}: scan {c.dtype} x {qs.dtype} {tuple(c.shape)} "
+                f"[{took[0]}] Q {qs.shape[0]} "
                 f"block {kw['block_rows']} path {kw['mode']} "
                 f"inv_norms={iv is not None} mask={mask is not None}: "
                 f"max_abs_err {err:.3g} id_mismatches {mism}")
@@ -480,14 +572,14 @@ def check_recorded(label, scans, matches):
         if not ok:
             raise AssertionError(f"scan kernel != plain: {line}")
     bm25_err = 0.0
-    for args, _, out in matches:
+    for args, _, out, _ in matches:
         plain = ob.bm25_match_scores_plain(*args)
         bm25_err = max(bm25_err, (out - plain).abs().max().item())
         line = f"{label}: bm25 match {tuple(args[0].shape)}"
         log(f"  {line}: bit-equal {torch.equal(out, plain)}")
         if not torch.equal(out, plain):
             raise AssertionError(f"bm25 match kernel != plain: {line}")
-    return scan_err, bm25_err
+    return scan_err[torch.int8], scan_err[torch.bfloat16], bm25_err
 
 
 def scan_bound(rows, queries, d, block):
@@ -506,10 +598,25 @@ def scan_ctas(queries, rows, block):
     return -(-queries // 128) * (rows // block)
 
 
+def bf16_scan_bound(rows, queries, d, block):
+    """(bound ms, what bounds it) of the bf16 scan with per-row scales:
+    corpus prefix, queries and scales read once and the sheet written
+    once, against 2 Q N d bf16 flops."""
+    nbytes = rows * d * 2 + queries * d * 2 + rows * 4 \
+        + rows // block * queries * 128 * 8
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = 2.0 * queries * rows * d / BF16_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
 def time_scan(dense, q):
-    """The scan's kernel, plain and library ms at the main-path shape (the
-    JSON line's entry), at the tokens wire's shape, and on the cascade's
-    bf16 prefix-128 path, each beside its bound."""
+    """The scan's kernel, plain and library ms, each beside its bound: the
+    int8 packed scan at the main-path shape and at the tokens wire's; the
+    cascade's bf16 prefix-128 scan on the bf16 tensor-core kernel at the
+    main-path shape, the tokens wire's bf16 prefix-64 scan, and the
+    CUDA-core kernel once at the main bf16 shape (f32 queries take it).
+    Returns the JSON line's numbers for (the int8 scan, the bf16 scan)."""
     import torch
 
     from rag_application_tpu_torch.ops import fused_topk as ft
@@ -545,30 +652,62 @@ def time_scan(dense, q):
         f"{scan_ctas(tok_q, tok_rows, BLOCK)} thread blocks on 132 SMs): "
         f"kernel {tok_ms:.4f} ms, bound {tok_bnd:.4f} ms ({tok_by})")
 
-    # the cascade's bf16 prefix-128 scan (general path, CUDA cores)
-    nb = N // BLOCK
-    qb = qn.to(torch.bfloat16)[:, :128]
+    # the cascade's bf16 prefix-128 scan (general path): bf16 queries take
+    # the bf16 tensor-core kernel
+    qb = qn.to(torch.bfloat16)[:, :128].contiguous()
+    cb = dense.vecs[:, :128]
     inv0 = dense.inv_norms[:, 0].contiguous()
-    f32_ms = cuda_ms(lambda: ft.scan_sheet(
-        dense.vecs[:, :128], qb, inv0, None, **{**kw, "mode": "f32"}),
-        reps=3)
+    kw = {**kw, "mode": "f32"}
+    before = dict(ft.route_launches)
+    bf_ms = cuda_ms(lambda: ft.scan_sheet(cb, qb, inv0, None, **kw), reps=5)
+    if rose(ft.route_launches, before) != ["fused_scan_bf16"]:
+        raise AssertionError("the cascade shape missed the bf16 kernel")
+    bf_plain_ms = cuda_ms(lambda: ft.scan_sheet_plain(cb, qb, inv0, None,
+                                                      **kw), reps=1)
     # yardstick: the bf16 product alone, (Q, N) bf16 scores written out
-    f32_lib_ms = cuda_ms(lambda: torch.matmul(qb, dense.vecs[:, :128].t()),
-                         reps=3)
-    f32_bound = max((N * 128 * 2 + N * 4 + nb * BATCH * 128 * 8)
-                    / HBM_BYTES_S, 2.0 * BATCH * N * 128 / BF16_OPS_S) * 1e3
-    log(f"  fused_scan bf16 prefix-128 path (cascade), full shape: kernel "
-        f"{f32_ms:.3f} ms, torch.matmul {f32_lib_ms:.3f} ms, bound "
-        f"{f32_bound:.3f} ms")
+    bf_lib_ms = cuda_ms(lambda: torch.matmul(qb, cb.t()), reps=3)
+    bf_bnd, bf_by = bf16_scan_bound(N, BATCH, 128, BLOCK)
+    log(f"  fused_scan_bf16, bf16 prefix-128 path (cascade), full shape "
+        f"({N}x128 of a {DIM}-wide table, {BATCH} queries, block {BLOCK}, "
+        f"{-(-BATCH // 128) * (N // BLOCK)} thread blocks): kernel "
+        f"{bf_ms:.3f} ms, plain {bf_plain_ms:.3f} ms, torch.matmul "
+        f"{bf_lib_ms:.3f} ms, bound {bf_bnd:.3f} ms ({bf_by}), kernel at "
+        f"{bf_bnd / bf_ms:.1%} of the bound")
+    # the same scan with f32 queries (the same values) takes the CUDA-core
+    # kernel, which odd-aligned bf16 and f32 corpora still use
+    qf = qb.float()
+    before = dict(ft.route_launches)
+    core_ms = cuda_ms(lambda: ft.scan_sheet(cb, qf, inv0, None, **kw), reps=2)
+    if rose(ft.route_launches, before) != ["fused_scan"]:
+        raise AssertionError("f32 queries missed the CUDA-core kernel")
+    log(f"  fused_scan CUDA-core kernel, the same scan with f32 queries: "
+        f"kernel {core_ms:.3f} ms")
     torch.cuda.empty_cache()
-    return scan_ms, scan_plain_ms, scan_lib_ms, scan_bnd, scan_by
+
+    # the tokens wire's bf16 scan: prefix 64 (128 columns loaded, the query
+    # tail zeroed), 262,144 stored chunks, 256 queries: too few 128- or
+    # 64-query thread blocks for the card, so the kernel takes 32-query tiles
+    qt = qb[:tok_q].clone()
+    qt[:, 64:] = 0
+    ct, it = cb[:tok_rows], inv0[:tok_rows]
+    tokb_ms = cuda_ms(lambda: ft.scan_sheet(ct, qt, it, None, **kw), reps=50)
+    tokb_lib_ms = cuda_ms(lambda: torch.matmul(qt, ct.t()), reps=50)
+    tokb_bnd, tokb_by = bf16_scan_bound(tok_rows, tok_q, 128, BLOCK)
+    log(f"  fused_scan_bf16, tokens-wire shape ({tok_rows}x128, prefix 64, "
+        f"{tok_q} queries, block {BLOCK}, "
+        f"{-(-tok_q // 32) * (tok_rows // BLOCK)} thread blocks on 132 SMs): "
+        f"kernel {tokb_ms:.4f} ms, torch.matmul {tokb_lib_ms:.4f} ms, bound "
+        f"{tokb_bnd:.4f} ms ({tokb_by})")
+    torch.cuda.empty_cache()
+    return ((scan_ms, scan_plain_ms, scan_lib_ms, scan_bnd, scan_by),
+            (bf_ms, bf_plain_ms, bf_lib_ms, bf_bnd, bf_by))
 
 
 def time_kernels(dense, q, bm25_args):
     """Kernel, plain and library ms at the full main-path shapes."""
     from rag_application_tpu_torch.ops import bm25 as ob
 
-    scan_t = time_scan(dense, q)
+    scan_t, scan_bf_t = time_scan(dense, q)
     dt, dw, qt, qv = bm25_args
     m_ms = cuda_ms(lambda: ob.bm25_match_scores(dt, dw, qt, qv), reps=20)
     m_plain_ms = cuda_ms(lambda: ob.bm25_match_scores_plain(dt, dw, qt, qv),
@@ -582,12 +721,13 @@ def time_kernels(dense, q, bm25_args):
         else "operations"
     log(f"  bm25_match {tuple(dt.shape)}: kernel {m_ms:.4f} ms, plain "
         f"{m_plain_ms:.4f} ms, bound {m_bound:.4f} ms")
-    return scan_t, (m_ms, m_plain_ms, None, m_bound, m_by)
+    return scan_t, scan_bf_t, (m_ms, m_plain_ms, None, m_bound, m_by)
 
 
 def run_main_path(dense, sparse, tokens, rng):
     """The port's entry point on full batches; returns (batch ms list,
-    recall@10, launch counts, mode lines)."""
+    recall@10, launch counts, (int8 scan, bf16 scan, bm25) max abs err of
+    one more cascade batch's launches against their plain versions)."""
     import torch
 
     from rag_application_tpu_torch.config import FunnelConfig
@@ -606,7 +746,7 @@ def run_main_path(dense, sparse, tokens, rng):
     plan = [("serving (no cascade)", False, "dense")] * 3 + [
         ("cascade + rrf", True, "rrf"), ("cascade + dbsf", True, "dbsf")]
 
-    ft.scan_sheet.launches = 0
+    reset_scan_counts(ft)
     ob.bm25_match_scores.launches = 0
     results, times, lines = [], [], []
     for (label, matryoshka, fusion), (q, texts) in zip(plan, batches):
@@ -628,9 +768,18 @@ def run_main_path(dense, sparse, tokens, rng):
                      f"events), {host_ms:.2f} ms host, path "
                      f"{getattr(ft.fused_scan_topk, 'last_path', None)}")
         log(lines[-1])
-    launches = {"fused_scan": ft.scan_sheet.launches,
+    launches = {**scan_counts(ft),
                 "bm25_match": ob.bm25_match_scores.launches}
+    if ft.route_launches["fused_scan"]:
+        raise AssertionError(f"the main path fell to the CUDA-core scan "
+                             f"kernel: {ft.route_launches}")
     profile_batch(searcher, *batches[0], funnel)
+    # one more cascade batch, its kernel launches held against plain
+    with recording(ft, "scan_sheet", ft.route_launches) as scans, \
+            recording(ob, "bm25_match_scores") as matches:
+        searcher.search(*batches[3], K, use_matryoshka=True, funnel=funnel)
+    errs = check_recorded("cascade batch", scans, matches)
+    del scans, matches
 
     for q, scores, ids in results:
         s, i = scores.cpu().numpy(), ids.cpu().numpy()
@@ -643,7 +792,7 @@ def run_main_path(dense, sparse, tokens, rng):
     got = ids0.cpu().numpy()[:N_EVAL]
     recall = float(np.mean([np.isin(exact[r], got[r]).mean()
                             for r in range(N_EVAL)]))
-    return times, recall, launches
+    return times, recall, launches, errs
 
 
 def profile_batch(searcher, q, texts, funnel):
@@ -920,8 +1069,8 @@ def exact_scores(dense, q, rows):
 
 def run_tokens(col, emb, tokens):
     """The tokens wire over the ingested Collection; returns (ms/batch
-    list, recall@10, near-ties, launches, (scan, bm25) max abs err of
-    the path's launches against their plain versions)."""
+    list, recall@10, near-ties, launches, (int8 scan, bf16 scan, bm25)
+    max abs err of the path's launches against their plain versions)."""
     import torch
 
     from rag_application_tpu_torch.ops import bm25 as ob
@@ -938,7 +1087,7 @@ def run_tokens(col, emb, tokens):
     col.hybrid_search_text_batch(batches[0][1], K)
     torch.cuda.synchronize()
 
-    ft.scan_sheet.launches = 0
+    reset_scan_counts(ft)
     ob.bm25_match_scores.launches = 0
     times, results = [], []
     for _, texts in batches:
@@ -953,14 +1102,17 @@ def run_tokens(col, emb, tokens):
         times.append((ev0.elapsed_time(ev1),
                       (time.perf_counter() - t0) * 1e3))
         results.append(hits)
-    launches = {"fused_scan": ft.scan_sheet.launches,
+    launches = {**scan_counts(ft),
                 "bm25_match": ob.bm25_match_scores.launches}
+    if ft.route_launches["fused_scan"]:
+        raise AssertionError(f"the tokens wire fell to the CUDA-core scan "
+                             f"kernel: {ft.route_launches}")
     log(f"  hybrid_search_text_batch, {TOK_BATCHES} batches of {TOK_BATCH}: "
         f"ms/batch (CUDA events) {[round(t[0], 2) for t in times]}, host "
         f"{[round(t[1], 2) for t in times]}; launches {launches}")
     # the path's own kernel launches (the cascade's bf16 prefix scan, the
     # int8 scan, the BM25 match at the collection's pool) against plain
-    with recording(ft, "scan_sheet") as scans, \
+    with recording(ft, "scan_sheet", ft.route_launches) as scans, \
             recording(ob, "bm25_match_scores") as matches:
         col.hybrid_search_text_batch(batches[0][1], K)
     errs = [check_recorded("tokens wire", scans, matches)]
@@ -1045,10 +1197,10 @@ def run_tokens(col, emb, tokens):
     ids_b, am_b = emb.tokenizer.encode_batch(texts, emb.max_len)
     _, raw = col._fused.search_tokens(ids_b, texts, K, attn_mask=am_b,
                                       funnel=col._funnel(None, True))
-    with recording(ft, "scan_sheet") as scans, \
+    with recording(ft, "scan_sheet", ft.route_launches) as scans, \
             recording(ob, "bm25_match_scores") as matches:
         after_hits = col.hybrid_search_text_batch(texts, K)
-    if not all(args[3] is not None for args, _, _ in scans):
+    if not all(args[3] is not None for args, _, _, _ in scans):
         raise AssertionError("a scan after delete_document ran unmasked")
     errs.append(check_recorded("after delete_document", scans, matches))
     leaked = int(np.isin(raw.cpu().numpy(), rows).sum())
@@ -1200,7 +1352,7 @@ def run_generate(dev):
     del ck, cv, logits
 
     torch.cuda.reset_peak_memory_stats()
-    ft.scan_sheet.launches = 0
+    reset_scan_counts(ft)
     ob.bm25_match_scores.launches = 0
     da.decode_attend_int8.launches = 0
     t0 = time.perf_counter()
@@ -1346,8 +1498,8 @@ def scan_only(dev, card) -> int:
     log(f"[tables] dense {N}x{DIM} built in {t_dense:.1f} s")
     q, _ = make_queries(dense, None, np.random.default_rng(0), 1)
     log("[check] scan kernel vs plain on the card")
-    _, n_cases = check_scan(dense, cap, q)
-    log(f"[check] {n_cases} scan cases passed")
+    errs, n_cases = check_scan(dense, cap, q)
+    log(f"[check] {n_cases} scan cases passed; max abs err by kernel {errs}")
     del cap
     log(f"[time] scan at the main-path shapes ({card})")
     time_scan(dense, q)
@@ -1400,19 +1552,25 @@ def main() -> int:
     log("[check] kernel vs plain on the card")
     q, texts = make_queries(dense, tokens, rng, 1)
     t0 = time.perf_counter()
-    scan_err, n_cases = check_scan(dense, cap, q)
+    scan_errs, n_cases = check_scan(dense, cap, q)
+    scan_err = max(scan_errs["fused_scan_int8"], scan_errs["fused_scan"])
+    scan_bf_err = scan_errs["fused_scan_bf16"]
     bm25_err, bm25_args = check_bm25(sparse, texts)
     log(f"[check] {n_cases} scan cases + bm25 passed in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s; scan max abs err by kernel "
+        f"{scan_errs}")
     del cap
 
     log(f"[time] kernels at the main-path shapes ({card})")
-    scan_t, bm25_t = time_kernels(dense, q, bm25_args)
+    scan_t, scan_bf_t, bm25_t = time_kernels(dense, q, bm25_args)
     torch.cuda.empty_cache()
 
     log(f"[main] FusedSearcher.search, batch {BATCH}, block {BLOCK}, "
         f"q_block {Q_BLOCK} ({card})")
-    times, recall, launches = run_main_path(dense, sparse, tokens, rng)
+    times, recall, launches, errs = run_main_path(dense, sparse, tokens, rng)
+    scan_err = max(scan_err, errs[0])
+    scan_bf_err = max(scan_bf_err, errs[1])
+    bm25_err = max(bm25_err, errs[2])
     serving = [t[1] for t in times if t[0].startswith("serving")]
     log(f"[main] serving ms/batch {serving} (mean "
         f"{sum(serving) / len(serving):.2f}), recall@10 vs exact on "
@@ -1437,10 +1595,11 @@ def main() -> int:
     col, emb, ing_tokens, _, prep_launches = run_ingest(dev)
     log(f"[tokens] hybrid_search_text_batch over {col.dense.size:,} chunks, "
         f"{TOK_BATCHES} batches of {TOK_BATCH} ({card})")
-    tok_times, tok_recall, _, tok_launches, (tok_scan_err, tok_bm25_err) = \
-        run_tokens(col, emb, ing_tokens)
-    scan_err = max(scan_err, tok_scan_err)
-    bm25_err = max(bm25_err, tok_bm25_err)
+    tok_times, tok_recall, _, tok_launches, errs = run_tokens(
+        col, emb, ing_tokens)
+    scan_err = max(scan_err, errs[0])
+    scan_bf_err = max(scan_bf_err, errs[1])
+    bm25_err = max(bm25_err, errs[2])
     if tok_recall < 0.95:
         raise AssertionError(f"tokens wire recall@10 {tok_recall:.4f} < 0.95")
     for name, n in tok_launches.items():
@@ -1475,6 +1634,10 @@ def main() -> int:
         entry("fused_scan", "rag_application_tpu_torch/csrc/fused_scan.cu",
               "rag_application_tpu/ops/fused_topk.py:61",
               launches["fused_scan"], scan_err, scan_t),
+        entry("fused_scan_bf16",
+              "rag_application_tpu_torch/csrc/fused_scan_bf16.cu",
+              "rag_application_tpu/ops/fused_topk.py:61",
+              launches["fused_scan_bf16"], scan_bf_err, scan_bf_t),
         entry("bm25_match", "rag_application_tpu_torch/csrc/bm25_match.cu",
               "rag_application_tpu/ops/bm25.py:45",
               launches["bm25_match"], bm25_err, bm25_t),

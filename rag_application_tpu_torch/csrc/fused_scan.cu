@@ -6,18 +6,21 @@
 // the rows {lane, lane+128, ...} of the block, or of each strip when strips
 // emit their own bins — keeping each bin's max and its row (ties toward the
 // smaller row), and writes only that (nb, Q, 128*segments) candidate sheet.
-// fused_scan_launch is the one entry: int8 corpora (the packed, packed_scaled
-// and general reduce paths) go to the tensor-core kernel of
-// fused_scan_int8.cu; bf16 and f32 corpora take the general path (max +
-// smallest row) on the CUDA-core kernel below.
+// fused_scan_launch is the one entry, and sends each corpus and query type to
+// one of three kernels:
+//   * int8 corpus, int8 queries (the packed, packed_scaled and general
+//     reduce paths): the int8 tensor-core kernel of fused_scan_int8.cu;
+//   * bf16 corpus, bf16 queries, rows and pointers on 4-byte boundaries (the
+//     general path; the matryoshka cascade's prefix scan): the bf16
+//     tensor-core kernel of fused_scan_bf16.cu;
+//   * f32 corpus, or f32 queries on a bf16 corpus, which is also where the
+//     wrapper sends a bf16 scan whose odd depth, odd row stride or pointer
+//     cp.async cannot copy (the general path): the CUDA-core kernel below.
 //
-// What bounds it on the H100: operations. The cascade's bf16 prefix-128 scan
-// (1,048,576 rows, 8192 queries) is 2*Q*N*128 = 2.2e12 operations, 2.2 ms at
-// the 989 TFLOP/s bf16 tensor-core rate.
-//
-// What this design does about it: nothing fast yet — it is the simple,
-// exact first kernel, on the CUDA cores: bf16/f32 rows are upcast to f32
-// when staged and dotted with fmaf. One 256-thread block owns one query tile
+// What bounds it on the H100: operations, 2*Q*N*d. No main path reaches the
+// kernel below when both operands are bf16, so it stays the simple, exact
+// first kernel: rows are upcast to f32 when staged and dotted with fmaf on
+// the CUDA cores (67 TFLOP/s f32). One 256-thread block owns one query tile
 // of 64 queries and one segment of one corpus block; threads own lanes, each
 // keeping the running (max, row) of 8 queries x 4 lanes in registers across
 // the segment's row groups, so no score ever leaves registers. Query and
@@ -25,7 +28,7 @@
 // 20-word row pitch, which makes the 16-byte shared loads of a warp's 32
 // different corpus rows conflict-free. The query tile index varies fastest
 // in the grid, so the blocks in flight share one or two corpus blocks and
-// the corpus is read from device memory about once. Tensor cores come later.
+// the corpus is read from device memory about once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,35 +41,17 @@ constexpr int QT = 64;        // queries per thread block
 constexpr int TQ = 8;         // queries per thread: tq*TQ + i
 constexpr int TL = 4;         // lanes per thread: tl + 32*j
 constexpr int THREADS = 256;  // (QT / TQ) warps x 32 lane groups
-constexpr int KW = 16;        // 32-bit shared words of depth per chunk
+constexpr int KW = 16;        // elements of depth per staged chunk
 constexpr int PITCH = 20;     // shared row pitch in words
 constexpr float NEG = -3.0e38f;
 
 enum Mode { PACKED = 0, PACKED_SCALED = 1, GENERAL = 2 };
 
-// How a 32-bit shared word is filled from device memory: one f32.
-template <typename T> struct Elem;
-template <> struct Elem<__nv_bfloat16> {
-  static constexpr int PER_WORD = 1;
-  __device__ static uint32_t load(const __nv_bfloat16* p, long long i) {
-    return __float_as_uint(__bfloat162float(p[i]));
-  }
-};
-template <> struct Elem<float> {
-  static constexpr int PER_WORD = 1;
-  __device__ static uint32_t load(const float* p, long long i) {
-    return __float_as_uint(p[i]);
-  }
-};
-
-template <bool INT8> struct Acc;
-template <> struct Acc<false> {
-  using T = float;
-  __device__ static void mac(float& acc, uint32_t a, uint32_t b) {
-    acc = fmaf(__uint_as_float(a), __uint_as_float(b), acc);
-  }
-  __device__ static float to_float(float v) { return v; }
-};
+// One element of a staged row as f32.
+__device__ __forceinline__ float as_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float as_f32(float v) { return v; }
 
 template <typename C, typename Q>
 __global__ void __launch_bounds__(THREADS)
@@ -75,13 +60,8 @@ scan_kernel(const C* __restrict__ corpus, long long ld,
             const float* __restrict__ inv, const uint8_t* __restrict__ mask,
             long long valid_n, int block_rows, int nseg, int rows_total,
             float* __restrict__ vals, int* __restrict__ ids) {
-  using A = Acc<false>;
-  using acc_t = typename A::T;
-  constexpr int PER_WORD = Elem<C>::PER_WORD;
-  static_assert(PER_WORD == Elem<Q>::PER_WORD, "query/corpus word mismatch");
-
-  __shared__ __align__(16) uint32_t qs[QT * PITCH];
-  __shared__ __align__(16) uint32_t cs[LANES * PITCH];
+  __shared__ __align__(16) float qs[QT * PITCH];
+  __shared__ __align__(16) float cs[LANES * PITCH];
 
   const int tid = threadIdx.x;
   const int tl = tid & 31;
@@ -92,7 +72,6 @@ scan_kernel(const C* __restrict__ corpus, long long ld,
   const long long seg_off = static_cast<long long>(seg) * rows_total * LANES;
   const long long seg_row0 =
       static_cast<long long>(blk) * block_rows + seg_off;
-  const int words = d / PER_WORD;
 
   float bval[TQ][TL];  // running max
   int brow[TQ][TL];    // its row group
@@ -106,46 +85,43 @@ scan_kernel(const C* __restrict__ corpus, long long ld,
 
   for (int r = 0; r < rows_total; ++r) {
     const long long row0 = seg_row0 + static_cast<long long>(r) * LANES;
-    acc_t acc[TQ][TL];
+    float acc[TQ][TL];
 #pragma unroll
     for (int i = 0; i < TQ; ++i)
 #pragma unroll
-      for (int j = 0; j < TL; ++j) acc[i][j] = 0;
+      for (int j = 0; j < TL; ++j) acc[i][j] = 0.0f;
 
-    for (int kw0 = 0; kw0 < words; kw0 += KW) {
+    for (int kw0 = 0; kw0 < d; kw0 += KW) {
       for (int w = tid; w < QT * KW; w += THREADS) {
         const int qi = w / KW, kw = w % KW, q = q0 + qi, kk = kw0 + kw;
-        uint32_t v = 0;
-        if (q < q_count && kk < words)
-          v = Elem<Q>::load(queries, static_cast<long long>(q) * d +
-                                         static_cast<long long>(kk) * PER_WORD);
+        float v = 0.0f;
+        if (q < q_count && kk < d)
+          v = as_f32(queries[static_cast<long long>(q) * d + kk]);
         qs[qi * PITCH + kw] = v;
       }
       for (int w = tid; w < LANES * KW; w += THREADS) {
         const int li = w / KW, kw = w % KW, kk = kw0 + kw;
-        uint32_t v = 0;
-        if (kk < words)
-          v = Elem<C>::load(corpus, (row0 + li) * ld +
-                                        static_cast<long long>(kk) * PER_WORD);
+        float v = 0.0f;
+        if (kk < d) v = as_f32(corpus[(row0 + li) * ld + kk]);
         cs[li * PITCH + kw] = v;
       }
       __syncthreads();
 #pragma unroll
       for (int kw = 0; kw < KW; kw += 4) {
-        uint4 b[TL];
+        float4 b[TL];
 #pragma unroll
         for (int j = 0; j < TL; ++j)
-          b[j] = *reinterpret_cast<const uint4*>(&cs[(tl + 32 * j) * PITCH + kw]);
+          b[j] = *reinterpret_cast<const float4*>(&cs[(tl + 32 * j) * PITCH + kw]);
 #pragma unroll
         for (int i = 0; i < TQ; ++i) {
-          const uint4 a =
-              *reinterpret_cast<const uint4*>(&qs[(tq * TQ + i) * PITCH + kw]);
+          const float4 a =
+              *reinterpret_cast<const float4*>(&qs[(tq * TQ + i) * PITCH + kw]);
 #pragma unroll
           for (int j = 0; j < TL; ++j) {
-            A::mac(acc[i][j], a.x, b[j].x);
-            A::mac(acc[i][j], a.y, b[j].y);
-            A::mac(acc[i][j], a.z, b[j].z);
-            A::mac(acc[i][j], a.w, b[j].w);
+            acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
+            acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
+            acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
+            acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
           }
         }
       }
@@ -161,7 +137,7 @@ scan_kernel(const C* __restrict__ corpus, long long ld,
       const float scale = (inv != nullptr) ? inv[row] : 1.0f;
 #pragma unroll
       for (int i = 0; i < TQ; ++i) {
-        float v = A::to_float(acc[i][j]);
+        float v = acc[i][j];
         if (inv != nullptr) v = __fmul_rn(v, scale);
         if (!valid) v = NEG;
         if (v > bval[i][j]) {
@@ -215,9 +191,19 @@ cudaError_t fused_scan_int8(const void* corpus, long long ld,
                             int rmask, float* vals, int* ids,
                             cudaStream_t stream);
 
+// fused_scan_bf16.cu: the tensor-core kernel of bf16 corpus x bf16 queries
+cudaError_t fused_scan_bf16(const void* corpus, long long ld,
+                            const void* queries, int q_count, int d,
+                            const float* inv, const uint8_t* mask,
+                            long long valid_n, int nb, int block_rows,
+                            int nseg, int rows_total, float* vals, int* ids,
+                            cudaStream_t stream);
+
 // corpus_dtype: 0 int8 (queries int8), 1 bf16 (queries f32), 2 f32 (queries
-// f32). mode: 0 packed, 1 packed_scaled, 2 general. valid_n < 0: no bound.
-// inv / mask may be null. Returns a cudaError_t (0 = launched).
+// f32), 3 bf16 (queries bf16; refused unless d and ld are even and both
+// pointers 4-byte aligned). ld and d count elements. mode: 0 packed, 1
+// packed_scaled, 2 general. valid_n < 0: no bound. inv / mask may be null.
+// Returns a cudaError_t (0 = launched).
 extern "C" int fused_scan_launch(const void* corpus, int corpus_dtype,
                                  long long ld, const void* queries,
                                  int q_count, int d, const float* inv,
@@ -244,6 +230,10 @@ extern "C" int fused_scan_launch(const void* corpus, int corpus_dtype,
 #define SCAN_ARGS corpus, ld, queries, q_count, d, inv, mask, valid_n, nb, \
                   block_rows, nseg, rows_total, vals, ids, s
   if (mode == GENERAL) {
+    if (corpus_dtype == 3)
+      return fused_scan_bf16(corpus, ld, queries, q_count, d, inv, mask,
+                             valid_n, nb, block_rows, nseg, rows_total, vals,
+                             ids, s);
     if (corpus_dtype == 1) return launch<__nv_bfloat16, float>(SCAN_ARGS);
     if (corpus_dtype == 2) return launch<float, float>(SCAN_ARGS);
   }

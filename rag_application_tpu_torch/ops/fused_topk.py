@@ -7,11 +7,11 @@ of each strip, with ``strip_outputs``), keeps its max and row id, and
 breaks ties toward the smaller row — and writes only that candidate
 sheet. The caller top-ks the sheet and exact-rescores the winners.
 
-`scan_sheet` is the kernel wrapper: on a CUDA tensor it launches
-`csrc/fused_scan.cu` (the port of the Pallas `_scan_kernel`), on a CPU
-tensor it runs `scan_sheet_plain`, the same arithmetic in plain PyTorch.
-Both produce the same sheet — bins, winners, row ids, tie-breaks and
-sentinels — for all three reduce paths:
+`scan_sheet` is the kernel wrapper: on a CUDA tensor it launches one of
+the three CUDA kernels that port the Pallas `_scan_kernel` (`scan_route`
+says which), on a CPU tensor it runs `scan_sheet_plain`, the same
+arithmetic in plain PyTorch. Both produce the same sheet — bins, winners,
+row ids, tie-breaks and sentinels — for all three reduce paths:
 
   * packed (int8, no scale): one int32 key `score*rows + (rows-1-row)`,
     exact while `_packed_fits`;
@@ -20,6 +20,20 @@ sentinels — for all three reduce paths:
     back truncated by those bits, as in the reference);
   * general (int8 without the packed bound, or bf16/f32): max, then the
     smallest row among the hits.
+
+Which kernel a scan takes, by corpus and query type:
+
+  * int8 corpus + int8 queries, every reduce path:
+    `csrc/fused_scan_int8.cu` (tensor cores, `mma.sync` s8), bit-equal to
+    the plain version;
+  * bf16 corpus + bf16 queries (what `fused_core` passes on the cascade's
+    prefix scan), rows and pointers on 4-byte boundaries:
+    `csrc/fused_scan_bf16.cu` (tensor cores, `mma.sync` bf16): the plain
+    version's exact products, summed in f32 in another order;
+  * an f32 corpus, f32 queries on a bf16 corpus, or a bf16 scan with an
+    odd depth, an odd row stride or a pointer off a 4-byte boundary
+    (`cp.async` cannot copy those; its queries are upcast to f32):
+    `csrc/fused_scan.cu` (CUDA cores, `fmaf`).
 
 Bitcasts are `.view()` reinterprets, never `.to()` casts, and the packed
 decode is a floor division, as `//` is in JAX.
@@ -46,7 +60,33 @@ _SHEET_BYTES_BUDGET = 1 << 30
 _INT_MIN = -(2 ** 31)
 # reduce path (fused_scan_topk.last_path) -> the kernel's reduce mode
 _MODES = {"packed": 0, "packed_scaled": 1, "int8_general": 2, "f32": 2}
-_DTYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+# route (the kernel's source in csrc/) -> fused_scan_launch's dtype code
+# for it, by corpus dtype
+ROUTES = ("fused_scan_int8", "fused_scan_bf16", "fused_scan")
+_DTYPE_CODES = {("fused_scan_int8", torch.int8): 0,
+                ("fused_scan", torch.bfloat16): 1,
+                ("fused_scan", torch.float32): 2,
+                ("fused_scan_bf16", torch.bfloat16): 3}
+# launches of each route by `scan_sheet`; their sum is `scan_sheet.launches`
+# unless a caller reset one without the other
+route_launches = dict.fromkeys(ROUTES, 0)
+
+
+def scan_route(corpus_dtype: torch.dtype, query_dtype: torch.dtype, d: int,
+               row_stride: int, corpus_ptr: int, query_ptr: int) -> str:
+    """The CUDA kernel (one of `ROUTES`) that `scan_sheet` launches for a
+    corpus of ``corpus_dtype`` with ``d`` columns, a row stride of
+    ``row_stride`` elements and its first element at address
+    ``corpus_ptr``, and contiguous queries of ``query_dtype`` at
+    ``query_ptr``. A function of these alone, so it can be asked without
+    a card."""
+    if corpus_dtype == torch.int8:
+        return "fused_scan_int8"
+    if (corpus_dtype == torch.bfloat16 and query_dtype == torch.bfloat16
+            and d % 2 == 0 and row_stride % 2 == 0
+            and corpus_ptr % 4 == 0 and query_ptr % 4 == 0):
+        return "fused_scan_bf16"
+    return "fused_scan"
 
 
 def _packed_fits(d: int, block_rows: int) -> bool:
@@ -190,9 +230,10 @@ def scan_sheet(corpus: torch.Tensor, queries: torch.Tensor,
                strips: int, strip_outputs: bool
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel wrapper: the candidate sheet of `scan_sheet_plain`, from
-    `csrc/fused_scan.cu` on a CUDA corpus, from the plain version on a
-    CPU corpus. ``corpus`` may be a column slice of a wider table (row
-    stride > d); its rows are a multiple of ``block_rows``."""
+    the CUDA kernel `scan_route` names on a CUDA corpus (counted in
+    `route_launches`), from the plain version on a CPU corpus.
+    ``corpus`` may be a column slice of a wider table (row stride > d);
+    its rows are a multiple of ``block_rows``."""
     if corpus.device.type == "cpu":
         return scan_sheet_plain(corpus, queries, inv_norms, mask,
                                 valid_n=valid_n, block_rows=block_rows,
@@ -205,7 +246,7 @@ def scan_sheet(corpus: torch.Tensor, queries: torch.Tensor,
     nseg = strips if strip_outputs else 1
     nb = n // block_rows
     int8_mode = corpus.dtype == torch.int8
-    if corpus.dtype not in _DTYPES:
+    if corpus.dtype not in (torch.int8, torch.bfloat16, torch.float32):
         raise TypeError(f"scan_sheet: corpus dtype {corpus.dtype}")
     if corpus.stride(1) != 1 or n % block_rows or block_rows % (LANES * nseg):
         raise ValueError("scan_sheet: corpus must be row-major with rows a "
@@ -218,11 +259,13 @@ def scan_sheet(corpus: torch.Tensor, queries: torch.Tensor,
             raise TypeError("scan_sheet: int8 corpus needs int8 queries")
         if d % 4 or corpus.stride(0) % 4 or corpus.data_ptr() % 4:
             raise ValueError("scan_sheet: int8 rows must be 4-byte aligned")
-    else:
-        queries = queries.float()
     queries = queries.contiguous()
     if int8_mode and queries.data_ptr() % 4:
         raise ValueError("scan_sheet: int8 queries must be 4-byte aligned")
+    route = scan_route(corpus.dtype, queries.dtype, d, corpus.stride(0),
+                       corpus.data_ptr(), queries.data_ptr())
+    if route == "fused_scan":
+        queries = queries.float()  # the CUDA-core kernel stages f32 queries
     if queries.shape[1] != d or queries.device != corpus.device:
         raise ValueError("scan_sheet: queries must be (Q, d) on the corpus "
                          "device")
@@ -247,11 +290,12 @@ def scan_sheet(corpus: torch.Tensor, queries: torch.Tensor,
     if nb == 0 or qn == 0:
         return vals, ids
     launch("fused_scan_launch", corpus.device,
-           ptr(corpus), _DTYPES[corpus.dtype], corpus.stride(0),
+           ptr(corpus), _DTYPE_CODES[route, corpus.dtype], corpus.stride(0),
            ptr(queries), qn, d, ptr(inv_norms), ptr(mask),
            -1 if valid_n is None else int(valid_n),
            nb, block_rows, nseg, _MODES[mode], ptr(vals), ptr(ids))
     scan_sheet.launches += 1
+    route_launches[route] += 1
     return vals, ids
 
 

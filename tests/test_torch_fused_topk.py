@@ -68,8 +68,9 @@ def _run(corpus, queries, inv, mask, k=12, select=False, **kw):
             tc, tq, ti)
 
 
-def _check_f32_sheet(jv, jids, tv, tids, tc, tq, ti, prefix):
-    np.testing.assert_allclose(tv, jv, rtol=0, atol=F32_ATOL)
+def _check_f32_sheet(jv, jids, tv, tids, tc, tq, ti, prefix,
+                     atol=F32_ATOL):
+    np.testing.assert_allclose(tv, jv, rtol=0, atol=atol)
     diff = jids != tids
     if not diff.any():
         return
@@ -82,7 +83,7 @@ def _check_f32_sheet(jv, jids, tv, tids, tc, tq, ti, prefix):
     rows = np.nonzero(diff)[0]
     a = exact[rows, jids[diff]]
     b = exact[rows, tids[diff]]
-    assert np.abs(a - b).max() <= 2 * F32_ATOL
+    assert np.abs(a - b).max() <= 2 * atol
     assert diff.mean() < 0.01
 
 
@@ -145,6 +146,90 @@ def test_scan_sheet_matches_pallas_depths(rng, path, d):
     assert tv.shape == (67, -(-n // block) * bins)
     np.testing.assert_array_equal(tids, jids)   # bit-equal
     np.testing.assert_array_equal(tv.view(np.int32), jv.view(np.int32))
+
+
+# the f32 path at the CUDA bf16 kernel's edges, which the chip checks hold it
+# to this plain version at, with bf16 corpus and bf16 queries as `fused_core`
+# passes them: d = 72 ends inside a staged chunk, 256 and 768 are 2 and 6
+# chunks a row group; 67 queries is no multiple of its 32-, 64- and 128-query
+# tiles; prefix 64 zeroes the query tail of the 128 columns loaded
+@pytest.mark.parametrize("d,prefix", [(72, None), (128, 64), (256, None),
+                                      (768, None), (768, 64)])
+@pytest.mark.parametrize("strips,strip_outputs", [(1, False), (2, True)])
+def test_scan_sheet_f32_matches_pallas_depths(rng, d, prefix, strips,
+                                              strip_outputs):
+    block = 1024
+    n = 2 * block + 300  # ragged tail: padding + valid_n inside a block
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    qs = x[:67] + 0.05 * rng.standard_normal((67, d)).astype(np.float32)
+    qs /= np.linalg.norm(qs, axis=-1, keepdims=True)
+    inv = (1.0 / np.linalg.norm(x[:, :prefix or d], axis=-1)
+           ).astype(np.float32)
+    mask = rng.random(n) > 0.3
+    jv, jids, tv, tids, tc, tq, ti = _run(
+        x, qs, inv, mask, block_rows=block, strips=strips,
+        strip_outputs=strip_outputs, prefix_dim=prefix)
+    assert tf.fused_scan_topk.last_path == "f32"
+    assert tq.dtype == tc.dtype == torch.bfloat16
+    bins = 128 * (strips if strip_outputs else 1)
+    assert tv.shape == tids.shape == (67, -(-n // block) * bins)
+    assert np.isfinite(tv).all()  # every bin holds a live row
+    # F32_ATOL covers d = 128 (d * 2^-24 a side); scale it with the depth
+    # the dot runs over
+    depth = prefix or d
+    _check_f32_sheet(jv, jids, tv, tids, tc, tq, ti, depth,
+                     atol=F32_ATOL * max(1.0, depth / 128))
+
+
+BF16, F32, I8 = torch.bfloat16, torch.float32, torch.int8
+
+
+# the kernel `scan_sheet` launches on a CUDA corpus, as a function of what it
+# can see of its operands: (corpus dtype, query dtype, d, row stride in
+# elements, corpus address, query address) -> the source under csrc/
+@pytest.mark.parametrize("args,route", [
+    ((I8, I8, 768, 768, 0, 0), "fused_scan_int8"),
+    ((I8, I8, 100, 116, 4, 4), "fused_scan_int8"),
+    ((BF16, BF16, 128, 768, 0, 0), "fused_scan_bf16"),   # the cascade scan
+    ((BF16, BF16, 72, 72, 256, 512), "fused_scan_bf16"),
+    ((BF16, BF16, 100, 116, 4, 4), "fused_scan_bf16"),   # 4-byte copies
+    ((BF16, BF16, 101, 101, 0, 0), "fused_scan"),        # odd depth
+    ((BF16, BF16, 100, 117, 0, 0), "fused_scan"),        # odd row stride
+    ((BF16, BF16, 128, 768, 2, 0), "fused_scan"),        # corpus off 4 bytes
+    ((BF16, BF16, 128, 768, 0, 6), "fused_scan"),        # queries off 4 bytes
+    ((BF16, F32, 128, 768, 0, 0), "fused_scan"),         # f32 queries
+    ((F32, F32, 128, 768, 0, 0), "fused_scan"),
+    ((F32, BF16, 128, 768, 0, 0), "fused_scan"),
+])
+def test_scan_route(args, route):
+    assert tf.scan_route(*args) == route
+    assert route in tf.ROUTES and route in tf.route_launches
+
+
+def test_scan_route_of_the_cascade_operands(rng):
+    """`fused_scan_topk` hands the wrapper what `fused_core` scans with: a
+    128-column slice of the bf16 plane and bf16 queries. On the CPU the
+    wrapper counts no launch, so ask the route of those very tensors."""
+    plane = torch.zeros((1024, 768), dtype=BF16)
+    q = torch.zeros((8, 768), dtype=BF16)
+    seen = {}
+
+    def spy(corpus, queries, *a, **kw):
+        queries = queries.contiguous()
+        seen["route"] = tf.scan_route(corpus.dtype, queries.dtype,
+                                      corpus.shape[1], corpus.stride(0),
+                                      corpus.data_ptr(), queries.data_ptr())
+        return tf.scan_sheet_plain(corpus, queries, *a, **kw)
+
+    real, tf.scan_sheet = tf.scan_sheet, spy
+    try:
+        tf.fused_scan_topk(plane, q, 4, block_rows=512, prefix_dim=64,
+                           inv_norms=torch.ones(1024))
+    finally:
+        tf.scan_sheet = real
+    assert seen["route"] == "fused_scan_bf16"
+    assert all(v == 0 for v in tf.route_launches.values())  # CPU: no launch
 
 
 @pytest.mark.parametrize("path", ["packed", "f32"])
