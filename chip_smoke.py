@@ -54,10 +54,14 @@
    published widths with random bf16 weights from a seed, int8 weights
    and int8 KV cache, `attn_kernel=True`:
    `[gen-check]` the int8-KV decode-attention kernel against its plain
-   version at four cache geometries (the main decode shape with fully
-   masked leading blocks and a fully masked row, B 1 at S 256, S 288,
-   KVH 8 / hd 128); `[gen-time]` its kernel, plain and library times
-   beside its bytes bound; `[gen-main]` `generate` at batch 64, prompt
+   version at nine cache geometries (the main decode shape with fully
+   masked leading blocks and a fully masked row, B 1 at S 256 and at the
+   chat's S 1024, S 288, KVH 8 / hd 128, G 7 and G 16, and K/V bytes
+   running through -128..127, once more with one visible slot a row,
+   which must match bit for bit); `[gen-time]` its kernel (on a cache
+   that stays in L2 and on caches read cold), plain and library times
+   beside its bytes bound, at the main decode shape and the chat's B 1;
+   `[gen-main]` `generate` at batch 64, prompt
    896, 128 new tokens (prefill ms, decode ms/step, tokens/s, peak
    memory, the kernel's launch count against the loop's), 4 decode steps
    of the kernel path against the einsum path, a profiled decode step,
@@ -72,6 +76,11 @@ when CUDA is not available.
 
 runs steps 1-2, the dense tables of step 3 and the scan's part of step 4
 alone (its checks and its times), for kernel work on the scan.
+
+    python3 chip_smoke.py --attn
+
+runs steps 1-2 and then `[gen-check]` and `[gen-time]` of step 7 alone,
+for kernel work on the decode attention.
 """
 
 from __future__ import annotations
@@ -888,29 +897,35 @@ def check_prep(dev):
     return worst
 
 
-def device_ms(fn, reps: int, match: str | None = None) -> float:
+def device_ms(fn, reps: int, match: str | None = None, *more: str):
     """Mean device time per call of ``fn``: the self device time of the
     CUDA kernels it ran (those whose name holds ``match``, if given),
     from torch.profiler over ``reps`` calls. Unlike CUDA events around
     back-to-back calls, it leaves out the gaps in which the device waits
-    for the host to enqueue the next launch."""
+    for the host to enqueue the next launch. With ``more`` names, returns
+    one time per name (``match`` first), all from the same calls. A
+    profiled run that recorded no device time for a name (it has
+    happened once in many) is profiled again once before this raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and (match is None or match in e.key))
-    if us <= 0:
-        raise AssertionError(f"the profiler saw no device time ({match})")
-    return us / 1e3 / reps
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        us = [sum(e.self_device_time_total for e in kern
+                  if name is None or name in e.key) for name in (match, *more)]
+        if min(us) > 0:
+            out = [u / 1e3 / reps for u in us]
+            return tuple(out) if more else out[0]
+    raise AssertionError(f"the profiler saw no device time ({match}, {more})")
 
 
 def time_prep(dev):
@@ -1244,22 +1259,73 @@ def attn_inputs(dev, B, S, KVH, G, hd, seed, masked_rows=False):
     return qg, ck, cv, mask
 
 
+def attn_byte_inputs(dev, B, S, KVH, G, hd, seed, one_visible=False):
+    """Random queries and scales over K and V rows whose bytes run through
+    every value from -128 to 127 (strided walks of the byte ring), and a
+    random mask, or with ``one_visible`` one visible slot a row."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qg = torch.randn((B, 1, KVH, G, hd), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    idx = torch.arange(B * S * KVH * hd, device=dev)
+    k8 = ((idx * 37 + 11) % 256 - 128).to(torch.int8).reshape(B, S, KVH, hd)
+    v8 = ((idx * 53 + 5) % 256 - 128).to(torch.int8).reshape(B, S, KVH, hd)
+    ks = torch.rand((B, S, KVH), generator=gen, device=dev) * 0.015 + 0.005
+    vs = torch.rand((B, S, KVH), generator=gen, device=dev) * 0.015 + 0.005
+    if one_visible:
+        mask = torch.zeros((B, S), dtype=torch.bool, device=dev)
+        slot = torch.randint(0, S, (B,), generator=gen, device=dev)
+        mask[torch.arange(B, device=dev), slot] = True
+    else:
+        mask = torch.rand((B, S), generator=gen, device=dev) > 0.3
+    return qg, {"q": k8, "s": ks}, {"q": v8, "s": vs}, mask
+
+
+def one_slot_output(args):
+    """The output when each row sees one slot: p = 1 and l = 1 there, so
+    every head of a kv head gets bf16(bf16(v_scale) * v8) of that slot."""
+    import torch
+
+    qg, _, cv, mask = args
+    B, _, KVH, G, hd = qg.shape
+    rows = torch.arange(B, device=qg.device)
+    slot = mask.to(torch.int8).argmax(dim=1)
+    vsb = cv["s"][rows, slot].to(torch.bfloat16).float()          # (B, KVH)
+    want = (vsb[..., None] * cv["q"][rows, slot].float()).to(torch.bfloat16)
+    return want[:, None, :, None, :].expand(B, 1, KVH, G, hd)
+
+
 def check_decode_attn(dev):
-    """Kernel vs plain at four geometries; each case within 2 bf16 ulps
-    of max|out| (the kernel rounds p*v_scale against its chunk's max, the
-    plain version against the row's), fully masked rows exactly 0.
-    Returns (worst max abs err, main-shape inputs)."""
+    """Kernel vs plain at nine geometries; each case within 2 bf16 ulps of
+    max|out| (the kernel rounds p*v_scale against its chunk's max, the
+    plain version against the row's), fully masked rows exactly 0. The
+    case with one visible slot a row must equal the plain version and
+    bf16(bf16(v_scale) * v8) bit for bit: every byte value goes through
+    the kernel's conversion once there, and nothing else rounds. Returns
+    (worst max abs err, main-shape inputs)."""
     import torch
 
     from rag_application_tpu_torch.ops import decode_attn as da
 
     worst, main = 0.0, None
     cases = [("main decode shape, masked prefix + empty row", ATTN_MAIN,
-              True), ("B 1, S 256", (1, 256, 4, 8, 64), False),
-             ("S 288 (no multiple of 256)", (GEN_B, 288, 4, 8, 64), False),
-             ("KVH 8, hd 128", (8, 1024, 8, 4, 128), True)]
-    for i, (label, (B, S, KVH, G, hd), masked) in enumerate(cases):
-        args = attn_inputs(dev, B, S, KVH, G, hd, 11 + i, masked)
+              "masked"), ("B 1, S 256", (1, 256, 4, 8, 64), "random"),
+             ("S 288 (no multiple of 256)", (GEN_B, 288, 4, 8, 64), "random"),
+             ("KVH 8, hd 128", (8, 1024, 8, 4, 128), "masked"),
+             ("G 7 (a padded head tile)", (16, 1024, 4, 7, 64), "masked"),
+             ("G 16 (two head tiles)", (16, 1024, 4, 16, 64), "masked"),
+             ("B 1, S 1024 (the chat's shape)", (1, 1024, 4, 8, 64),
+              "random"),
+             ("K and V bytes -128..127", ATTN_MAIN, "bytes"),
+             ("bytes -128..127, one visible slot a row", ATTN_MAIN, "one")]
+    for i, (label, (B, S, KVH, G, hd), kind) in enumerate(cases):
+        if kind in ("bytes", "one"):
+            args = attn_byte_inputs(dev, B, S, KVH, G, hd, 11 + i,
+                                    one_visible=kind == "one")
+        else:
+            args = attn_inputs(dev, B, S, KVH, G, hd, 11 + i,
+                               kind == "masked")
         k_out = da.decode_attend_int8(*args)
         p_out = da.decode_attend_int8_plain(*args)
         torch.cuda.synchronize()
@@ -1267,52 +1333,97 @@ def check_decode_attn(dev):
         bound = 2 * bf16_ulp(p_out.float().abs().max().item())
         empty = ~args[3].any(dim=1)
         zero = bool((k_out[empty] == 0).all().item())
+        exact = ""
+        if kind == "one":
+            bound = 0.0
+            same = bool(torch.equal(k_out, one_slot_output(args)))
+            exact = f", equal to bf16(bf16(v_scale) * v8): {same}"
+            zero = zero and same
         log(f"  decode_attn {label} (B {B}, S {S}, KVH {KVH}, G {G}, hd "
-            f"{hd}): max_abs_err {err:.3g} (bound {bound:.3g}), "
-            f"{int(empty.sum())} empty rows exactly 0: {zero}")
+            f"{hd}, chunk {da._pick_chunk(B, KVH, G, S, hd)}): max_abs_err "
+            f"{err:.3g} (bound {bound:.3g}), {int(empty.sum())} empty rows "
+            f"exactly 0: {zero}{exact}")
         if err > bound or not zero:
             raise AssertionError(f"decode_attn kernel != plain: {label}")
         worst = max(worst, err)
         if i == 0:
             main = args
+        del args, k_out, p_out
     return worst, main
 
 
-def time_decode_attn(args):
-    """Kernel, plain and library ms at the main decode shape, and the
-    bytes bound."""
+def time_decode_attn(dev, main):
+    """Kernel, plain and library ms at the main decode shape and at the
+    chat's B 1, S 1024, beside the bytes bound. Kernel and library times
+    are device times from the profiler: a call's kernels take less time
+    than the wrapper's host work, so CUDA events around back-to-back calls
+    measure the host's enqueue rate (logged beside them). The kernel is
+    timed on one cache called again and again ("hot": what the 50 MB L2
+    keeps of it between calls is read from there) and cycling over copies
+    of the cache that together exceed the L2 ("cold": a decode step's 22
+    layers read 22 caches, 740 MB at the main shape). Returns the main
+    shape's (cold ms, plain ms, SDPA ms, bound ms, bound_by): `generate`
+    reads its caches cold."""
+    import itertools
+
     import torch
     import torch.nn.functional as F
 
     from rag_application_tpu_torch.ops import decode_attn as da
 
-    qg, ck, cv, mask = args
-    B, _, KVH, G, hd = qg.shape
-    S = ck["q"].shape[1]
-    ms = cuda_ms(lambda: da.decode_attend_int8(*args), reps=50)
-    plain_ms = cuda_ms(lambda: da.decode_attend_int8_plain(*args), reps=5)
+    out = None
+    chat = attn_inputs(dev, 1, CHAT_PROMPT + CHAT_NEW, 4, 8, 64, 31)
+    for label, args in (("main decode shape", main), ("chat, B 1", chat)):
+        qg, ck, cv, mask = args
+        B, _, KVH, G, hd = qg.shape
+        S = ck["q"].shape[1]
+        nbytes = (2 * ck["q"].numel() + 2 * ck["s"].numel() * 4 + mask.numel()
+                  + 2 * qg.numel() * 2)
+        copies = [args] + [
+            (qg, {k: t.clone() for k, t in ck.items()},
+             {k: t.clone() for k, t in cv.items()}, mask)
+            for _ in range(-(-160_000_000 // nbytes) - 1)]
+        run = lambda: da.decode_attend_int8(*args)  # noqa: E731
+        it = itertools.cycle(copies)
+        reps = len(copies) * max(1, 400 // len(copies))
+        cold = device_ms(lambda: da.decode_attend_int8(*next(it)), reps,
+                         match="decode_attn")
+        hot, split = device_ms(run, 200, "decode_attn", "decode_attn_split")
+        paced = cuda_ms(run, reps=200)
+        del copies, it
+        plain_ms = cuda_ms(lambda: da.decode_attend_int8_plain(*args), reps=5)
 
-    # yardstick: SDPA on K/V dequantized to bf16 beforehand (timed apart)
-    def deq(c):
-        return (c["q"].float() * c["s"][..., None]).to(
-            torch.bfloat16).transpose(1, 2)          # (B, KVH, S, hd)
+        # yardstick: SDPA on K/V dequantized to bf16 beforehand (timed apart)
+        def deq(c):
+            return (c["q"].float() * c["s"][..., None]).to(
+                torch.bfloat16).transpose(1, 2)          # (B, KVH, S, hd)
 
-    deq_ms = cuda_ms(lambda: (deq(ck), deq(cv)), reps=5)
-    k, v = deq(ck), deq(cv)
-    q = qg.reshape(B, KVH * G, 1, hd)
-    am = mask[:, None, None, :]
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=am, enable_gqa=True), reps=50)
-    nbytes = (2 * ck["q"].numel() + 2 * ck["s"].numel() * 4 + mask.numel()
-              + 2 * qg.numel() * 2)
-    ops = 2 * 2 * B * KVH * G * S * hd
-    bound = max(nbytes / HBM_BYTES_S, ops / BF16_OPS_S) * 1e3
-    by = "bytes" if nbytes / HBM_BYTES_S >= ops / BF16_OPS_S else "operations"
-    log(f"  decode_attn {tuple(ck['q'].shape)}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, SDPA (bf16 K/V, enable_gqa) {lib_ms:.4f} ms + "
-        f"dequantization {deq_ms:.4f} ms, bound {bound:.4f} ms ({by}: "
-        f"{nbytes / 1e6:.1f} MB)")
-    return ms, plain_ms, lib_ms, bound, by
+        deq_ms = cuda_ms(lambda: (deq(ck), deq(cv)), reps=5)
+        k, v = deq(ck), deq(cv)
+        q = qg.reshape(B, KVH * G, 1, hd)
+        am = mask[:, None, None, :]
+        lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=am, enable_gqa=True), 50)
+        del k, v
+        ops = 2 * 2 * B * KVH * G * S * hd
+        bound = max(nbytes / HBM_BYTES_S, ops / BF16_OPS_S) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES_S >= ops / BF16_OPS_S \
+            else "operations"
+        chunk = da._pick_chunk(B, KVH, G, S, hd)
+        log(f"  decode_attn {label} {tuple(ck['q'].shape)}, chunk {chunk} "
+            f"({B * KVH * -(-S // chunk)} blocks, "
+            f"{da.resident_blocks(G, hd, chunk)} a SM at once): kernel cold "
+            f"{cold:.4f} ms "
+            f"({-(-160_000_000 // nbytes)} caches in turn), hot {hot:.4f} ms "
+            f"(one cache; split {split:.4f} + merge {hot - split:.4f}) "
+            f"(device time, profiler); back-to-back calls by CUDA events "
+            f"{paced:.4f} ms; plain {plain_ms:.4f} ms; SDPA (bf16 K/V, "
+            f"enable_gqa) {lib_ms:.4f} ms (device time) + dequantization "
+            f"{deq_ms:.4f} ms (CUDA events); bound {bound:.4f} ms ({by}: "
+            f"{nbytes / 1e6:.2f} MB)")
+        if out is None:
+            out = (cold, plain_ms, lib_ms, bound, by)
+    return out
 
 
 def run_generate(dev):
@@ -1339,8 +1450,9 @@ def run_generate(dev):
                         device=dev, dtype=torch.int32)
     plen = torch.full((GEN_B,), GEN_T, dtype=torch.int32, device=dev)
     eos = cfg.vocab_size  # unreachable: no early stop
+    pad = -1              # no token: every slot of the output counts
 
-    dec.generate(params, cfg, ids[:, :64], plen // 14, 2, eos, 0)  # warm-up
+    dec.generate(params, cfg, ids[:, :64], plen // 14, 2, eos, pad)  # warm-up
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     ev[0].record()
@@ -1357,7 +1469,7 @@ def run_generate(dev):
     da.decode_attend_int8.launches = 0
     t0 = time.perf_counter()
     ev[2].record()
-    out, n = dec.generate(params, cfg, ids, plen, GEN_NEW, eos, 0)
+    out, n = dec.generate(params, cfg, ids, plen, GEN_NEW, eos, pad)
     ev[3].record()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
@@ -1374,7 +1486,9 @@ def run_generate(dev):
     o = out.cpu().numpy()
     assert o.shape == (GEN_B, GEN_NEW) and ((0 <= o) & (o < cfg.vocab_size)
                                             ).all()
-    assert (n.cpu().numpy() == GEN_NEW).all()
+    if not (n.cpu().numpy() == GEN_NEW).all():
+        raise AssertionError(f"generate stopped early: {n.min().item()} of "
+                             f"{GEN_NEW} tokens in some row")
     want = cfg.num_layers * GEN_NEW  # one launch per layer per decode step
     log(f"  decode_attn launches in generate: {launches} (the loop implies "
         f"{cfg.num_layers} layers x {GEN_NEW} steps = {want}); fused_scan "
@@ -1491,6 +1605,19 @@ def run_local_llm(params, cfg, dev):
     return da.decode_attend_int8.launches
 
 
+def attn_only(dev, card) -> int:
+    """`--attn`: the decode-attention kernel's checks and times alone, for
+    kernel work on it (no tables, search, write path or generation)."""
+    log("[gen-check] decode_attn kernel vs plain on the card")
+    err, args = check_decode_attn(dev)
+    log(f"[gen-check] every case held; max abs err {err:.3g}")
+    log(f"[gen-time] decode_attn at the main decode shape and the chat's "
+        f"({card})")
+    time_decode_attn(dev, args)
+    log(card)
+    return 0
+
+
 def scan_only(dev, card) -> int:
     """`--scan`: the scan kernel's checks and times alone, for kernel work
     on the scan (dense tables only; no search, write path or generation)."""
@@ -1535,6 +1662,8 @@ def main() -> int:
                 log("  " + line.rstrip())
     if sys.argv[1:] == ["--scan"]:
         return scan_only(dev, card)
+    if sys.argv[1:] == ["--attn"]:
+        return attn_only(dev, card)
 
     from rag_application_tpu_torch.ops import quant as oq
 
@@ -1611,8 +1740,9 @@ def main() -> int:
 
     log("[gen-check] decode_attn kernel vs plain on the card")
     attn_err, attn_args = check_decode_attn(dev)
-    log(f"[gen-time] decode_attn at the main decode shape ({card})")
-    attn_t = time_decode_attn(attn_args)
+    log(f"[gen-time] decode_attn at the main decode shape and the chat's "
+        f"({card})")
+    attn_t = time_decode_attn(dev, attn_args)
     del attn_args
     torch.cuda.empty_cache()
     log(f"[gen-main] generate, TinyLlama-1.1B widths, {GEN_B} x {GEN_T} + "

@@ -23,17 +23,23 @@ the slot axis to the same length.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Dict, Optional
 
 import torch
 
-from ..kernels import launch, ptr
+from ..kernels import launch, load, ptr
 
 NEG = -1.0e30
 
 _BLOCKS_TARGET = 4 * 132   # blocks to aim for: ~4 per SM of an H100
-_SMEM_MAX = 48 * 1024
+_MAX_SPLIT = 8             # chunks of S the merge kernel reads a head from
+# shared memory a block may take so that 4 blocks share an SM's 228 KB
+# (each block also holds 1 KB the system reserves), and the most one block
+# may use
+_SMEM_TARGET = 228 * 1024 // 4 - 1024
+_SMEM_MAX = 227 * 1024
 
 
 def pick_block(s: int) -> Optional[int]:
@@ -72,23 +78,52 @@ def decode_attend_int8_plain(qg: torch.Tensor, ck: Dict[str, torch.Tensor],
     return out[:, None].to(qg.dtype)
 
 
+def _smem_bytes(q_groups: int, head_dim: int, chunk: int) -> int:
+    """Shared memory of one kernel block (`smem_bytes` in
+    csrc/decode_attn.cu): K and V rows as bf16 padded by 16 bytes, q rows
+    as bf16 (the query heads padded to whole tiles of 8), bf16(p *
+    v_scale) per padded head, the f32 score sheet, the scales, (max, sum)
+    per head and the mask."""
+    row = 2 * head_dim + 16
+    heads = -(-q_groups // 8) * 8
+    return (2 * chunk * row + heads * 2 * head_dim + heads * (2 * chunk + 16)
+            + q_groups * (chunk + 4) * 4 + 2 * chunk * 4 + 2 * q_groups * 4
+            + chunk)
+
+
 def _pick_chunk(batch: int, kv_heads: int, q_groups: int, seq_len: int,
                 head_dim: int) -> int:
-    """Slots per thread block: the largest of 256/128/64/32 that fits
-    the block's shared memory, halved while the grid would leave the
-    card's SMs short of blocks (a B = 1 call splits S finely)."""
-    def smem(c):
-        return 4 * (q_groups * head_dim + q_groups * (c + 1) + 2 * q_groups
-                    + 2 * c * (head_dim // 4 + 1))
+    """Slots per thread block: the largest of 256/128/64/32 whose block
+    leaves room for 4 on an SM, halved while the grid would leave the
+    card's SMs short of blocks and S would still be cut into at most 8
+    chunks (the merge reads a head's partials one after another, so a
+    B = 1 call is better off with few long chunks). A geometry whose
+    32-slot block exceeds the most a block may use raises."""
+    def blocks(c):
+        return batch * kv_heads * -(-seq_len // c)
 
     chunk = 256
-    while chunk > 32 and (smem(chunk) > _SMEM_MAX or batch * kv_heads
-                          * -(-seq_len // chunk) < _BLOCKS_TARGET):
+    while chunk > 32 and (
+            _smem_bytes(q_groups, head_dim, chunk) > _SMEM_TARGET
+            or (blocks(chunk) < _BLOCKS_TARGET
+                and -(-seq_len // (chunk // 2)) <= _MAX_SPLIT)):
         chunk //= 2
-    if smem(chunk) > _SMEM_MAX:
+    if _smem_bytes(q_groups, head_dim, chunk) > _SMEM_MAX:
         raise ValueError(f"decode_attend_int8: G={q_groups} hd={head_dim} "
                          "exceeds the kernel's shared memory")
     return chunk
+
+
+def resident_blocks(q_groups: int, head_dim: int, chunk: int) -> int:
+    """Kernel blocks one SM of the current card holds at once at this
+    geometry (CUDA's occupancy calculator); needs the card."""
+    fn = load().decode_attn_blocks_per_sm
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    n = fn(q_groups, head_dim, chunk)
+    if n < 0:
+        raise RuntimeError(f"decode_attn_blocks_per_sm failed: cudaError {-n}")
+    return n
 
 
 def decode_attend_int8(qg: torch.Tensor, ck: Dict[str, torch.Tensor],
@@ -134,6 +169,8 @@ def decode_attend_int8(qg: torch.Tensor, ck: Dict[str, torch.Tensor],
     if len(devs) != 1:
         raise ValueError("decode_attend_int8: tensors on different devices")
     qg = qg.contiguous()
+    if qg.data_ptr() % 16:  # the kernel reads q rows in 16-byte units
+        qg = qg.clone()
     mask = mask.contiguous()
     chunk = _pick_chunk(B, KVH, G, S, hd)
     n_split = -(-S // chunk)

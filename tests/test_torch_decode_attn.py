@@ -56,6 +56,8 @@ def _tol(j, vmax, mask):
     (4, 8, 4, 128, 256),   # the C=32 geometry (llama-8B-like)
     (2, 2, 2, 64, 512),
     (4, 1, 4, 128, 128),   # KVH=1
+    (2, 2, 7, 64, 256),    # G=7: the CUDA kernel pads its head tile
+    (2, 2, 16, 64, 256),   # G=16: two head tiles
 ])
 def test_plain_matches_pallas(B, KVH, G, HD, S):
     r = np.random.default_rng(0)
@@ -89,11 +91,24 @@ def test_geometry_gate_matches_jax():
 
 
 def test_kernel_chunking_covers_the_cache():
-    """The CUDA wrapper's slot chunks: multiples of 32 that fit the
-    block's shared memory, finer for small batches."""
+    """The CUDA wrapper's slot chunks: multiples of 32 whose block fits
+    the kernel's shared memory (4 blocks a SM where they can), finer for
+    small batches but S cut into at most 8 chunks unless the shared memory
+    asks for more; a geometry whose smallest block does not fit raises."""
     for B, KVH, G, hd, S in ((64, 4, 8, 64, 1024), (1, 4, 8, 64, 256),
-                             (64, 4, 8, 64, 288), (8, 8, 4, 128, 1024)):
+                             (64, 4, 8, 64, 288), (8, 8, 4, 128, 1024),
+                             (16, 4, 7, 64, 1024), (16, 4, 16, 64, 1024),
+                             (1, 1, 8, 1024, 1024)):
         c = td._pick_chunk(B, KVH, G, S, hd)
         assert c % 32 == 0 and 32 <= c <= 256
-    assert td._pick_chunk(64, 4, 8, 1024, 64) == 256
+        assert td._smem_bytes(G, hd, c) <= td._SMEM_MAX
+    # the main decode shape: 128-slot blocks, 4 of them share an SM
+    assert td._pick_chunk(64, 4, 8, 1024, 64) == 128
+    assert td._smem_bytes(8, 64, 128) <= td._SMEM_TARGET
+    # the chat's B 1: 8 chunks of 128 slots, 32 blocks
+    assert td._pick_chunk(1, 4, 8, 1024, 64) == 128
     assert td._pick_chunk(1, 4, 8, 256, 64) == 32
+    # hd 128: the shared memory halves the chunk past 8 splits
+    assert td._pick_chunk(8, 8, 4, 1024, 128) == 64
+    with pytest.raises(ValueError, match="shared memory"):
+        td._pick_chunk(1, 1, 64, 1024, 1024)
