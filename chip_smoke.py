@@ -17,31 +17,41 @@
    (int8 d 100 to 2720 and bf16 d 72 to 2176 at both query-tile sizes,
    sliced tables, Q 1037; an f32 corpus and odd-d / odd-stride bf16 on
    the CUDA-core kernel), each case asserting the kernel it took; the
-   BM25 match on the batch's real candidates. Then kernel, plain and
-   library times at the full main-path shapes, beside each kernel's
-   bound: the int8 scan and the cascade's bf16 prefix scan, each also at
-   the tokens wire's shape, and the CUDA-core kernel once.
+   BM25 match, read by candidate id (`bm25_match_rows`), bit-equal on the
+   batch's real candidates, rows of sentinels only, pool 24, T 5 with
+   invalid slots and L 8, and on gathered rows (`bm25_match_scores`).
+   Then kernel, plain and library times at the full main-path shapes,
+   beside each kernel's bound: the int8 scan and the cascade's bf16
+   prefix scan, each also at the tokens wire's shape, the CUDA-core
+   kernel at the cascade's shape and on an f32 corpus, and BM25's stage
+   2 before (the gather of the rows alone) and after.
 5. Main path: FusedSearcher.search on batches of 8192 noisy corpus rows
    plus their token texts, with bench.py's funnel — 3 timed batches
    without the matryoshka cascade (the bench's serving setting), one
    with the cascade and rrf fusion, one with dbsf. Checks recall@10
    against an exact oracle on 128 queries (>= 0.95) and that every
-   kernel of the path was launched; one more cascade batch has each of
-   its scan and BM25 launches held against the plain version, the bf16
-   one on the bf16 tensor-core kernel.
+   kernel of the path was launched, BM25's through `bm25_match_rows`
+   only; one more cascade batch has each of its scan and BM25 launches
+   held against the plain version, the bf16 one on the bf16 tensor-core
+   kernel, and its `bm25_topk` run again under a dispatch mode that
+   fails on any op copying rows of the doc-major table.
 6. The write path and the tokens wire, at the repo's defaults
    (`Config()`: a 768-d index with bf16 + int8 planes and matryoshka dims
    (64, 128, 256); `EncoderConfig()`: vocab 30528, hidden 384, 6 layers,
    12 heads, MLP 1536, out 768, bf16, random weights from seed 0;
    Embedder windows of 128 tokens in batches of 64):
-   `[prep-check]` the insert prep kernel against its plain version at six
-   shapes (a 131,072 x 768 slab, a 64-row document, one row, 1037 x 100,
-   dims=(), zero and rescaled rows); `[prep-time]` its kernel and plain
-   times beside its bytes bound; `[ingest]` 4,096 documents x 64 chunks
-   (24-word zipf texts) through `Embedder.encode` and
-   `Collection.store_document_vectors` (chunks/s, encode and store ms per
-   document, a profiled document's device busy share, one
-   `prepare_vectors` launch per document); `[tokens]` 8 batches of 256
+   `[prep-check]` the insert prep kernel bit-equal to its plain version
+   at six shapes (a 131,072 x 768 slab, a 64-row document, one row,
+   1037 x 100, dims=(), zero and rescaled rows), and in place
+   (`prepare_vectors_into`) at three row offsets of index-shaped planes
+   whose guard rows must stay untouched; `[prep-time]` its kernel (in
+   place and into new tensors) and plain times beside its bytes bound;
+   `[ingest]` 4,096 documents x 64 chunks (24-word zipf texts) through
+   `Embedder.encode` and `Collection.store_document_vectors` (chunks/s,
+   encode and store ms per document, a profiled document's device busy
+   share, one in-place prep launch per document), then one document's
+   `DenseIndex.insert` under the profiler, which must be the upload and
+   one prep launch; `[tokens]` 8 batches of 256
    noisy chunk texts through `hybrid_search_text_batch`, held to
    encode-then-`hybrid_search_batch` (equal rows but at near-ties) and to
    recall@10 >= 0.95 against an exact oracle, then `delete_document` and
@@ -81,6 +91,12 @@ alone (its checks and its times), for kernel work on the scan.
 
 runs steps 1-2 and then `[gen-check]` and `[gen-time]` of step 7 alone,
 for kernel work on the decode attention.
+
+    python3 chip_smoke.py --match-prep
+
+runs steps 1-2, `[prep-check]` and `[prep-time]` of step 6, then the
+sparse table of step 3 and the BM25 match's checks and stage-2 times of
+step 4 alone, for kernel work on either kernel.
 """
 
 from __future__ import annotations
@@ -196,12 +212,19 @@ def rose(counts, before) -> list:
 
 def build_tables(dev):
     """The main path's dense and sparse indexes, from seeds."""
+    dense, cap, t_dense = build_dense(dev)
+    sparse, tokens, rng, t_sparse = build_sparse(dev)
+    return dense, cap, sparse, tokens, rng, t_dense, t_sparse
+
+
+def build_sparse(dev):
+    """The main path's sparse index, from a seed; returns (sparse, tokens,
+    rng, seconds)."""
     import torch
 
     from rag_application_tpu_torch.config import SparseConfig
     from rag_application_tpu_torch.index.sparse import SparseIndex
 
-    dense, cap, t_dense = build_dense(dev)
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     tokens = synth_tokens(rng, N)
@@ -211,8 +234,7 @@ def build_tables(dev):
     sparse.add_pretokenized(tokens)
     sparse.rebuild()
     torch.cuda.synchronize()
-    t_sparse = time.perf_counter() - t0
-    return dense, cap, sparse, tokens, rng, t_dense, t_sparse
+    return sparse, tokens, rng, time.perf_counter() - t0
 
 
 def build_dense(dev):
@@ -473,44 +495,122 @@ def near_ties_ok(c, qs, inv, ki, pi, tol) -> bool:
 
 
 def check_bm25(sparse, texts):
-    """Kernel vs plain on the batch's real stage-1 candidates.
-    Returns (max abs err, (dt, dw, q_terms, q_valid))."""
+    """Kernel vs plain: the fused entry `bm25_match_rows` bit-equal to
+    `bm25_match_rows_plain` on the batch's real stage-1 candidates, on
+    rows of sentinels only, at pool 24, at T 5 with invalid slots and at
+    L 8; the gathered-rows entry `bm25_match_scores` bit-equal to its
+    plain version on a random pool-24 case. Returns (max abs err,
+    (doc_packed, cand, q_terms, q_valid) of the batch)."""
     import torch
 
     from rag_application_tpu_torch.ops import bm25 as ob
 
     q_rows, q_terms, q_valid = sparse.encode_queries(texts)
     dv = sparse.device_arrays()
-    n_docs = dv["doc_packed"].shape[0] - 1
+    doc_packed = dv["doc_packed"]
+    n_docs = doc_packed.shape[0] - 1
     cand = ob.bm25_candidates(dv["post_docs"], dv["post_weights"], n_docs,
                               q_rows, q_valid, sparse.cfg.candidate_pool)
-    packed = dv["doc_packed"][cand.long()]
-    l = packed.shape[-1] // 2
-    args = (packed[..., :l], packed[..., l:].view(torch.float32), q_terms,
-            q_valid)
-    k_out = ob.bm25_match_scores(*args)
-    p_out = ob.bm25_match_scores_plain(*args)
-    torch.cuda.synchronize()
-    err = (k_out - p_out).abs().max().item()
-    hits = (p_out > 0).float().mean().item()
-    log(f"  bm25 match {tuple(k_out.shape)}: max_abs_err {err:.3g}, "
-        f"candidates with a hit {hits:.3f}")
-    # both add the L slots in order: bit-equal
-    if not torch.equal(k_out, p_out):
-        raise AssertionError("bm25 match kernel != plain")
-    # a pool that does not divide the kernel's 128-row blocks, random terms
-    gen = torch.Generator(device=q_rows.device).manual_seed(3)
-    dt = torch.randint(-1, 64, (1000, 24, 32), generator=gen,
-                       device=q_rows.device, dtype=torch.int32)
-    dw = torch.rand((1000, 24, 32), generator=gen, device=q_rows.device)
-    qt = torch.randint(0, 64, (1000, 32), generator=gen,
-                       device=q_rows.device, dtype=torch.int32)
-    qv = torch.rand((1000, 32), generator=gen, device=q_rows.device) > 0.5
+    dev = cand.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def table(n, l):
+        """(n + 1, 2l) packed rows, terms in [-1, 64), row n the sentinel."""
+        terms = torch.randint(-1, 64, (n + 1, l), generator=gen, device=dev,
+                              dtype=torch.int32)
+        w = torch.rand((n + 1, l), generator=gen, device=dev)
+        terms[n] = -1
+        w[n] = 0.0
+        return torch.cat([terms, w.view(torch.int32)], dim=1)
+
+    def queries(q, t):
+        qt = torch.randint(0, 64, (q, t), generator=gen, device=dev,
+                           dtype=torch.int32)
+        return qt, torch.rand((q, t), generator=gen, device=dev) > 0.5
+
+    def ids(q, pool, n):
+        return torch.randint(0, n + 1, (q, pool), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    t32, t8 = table(5000, 32), table(5000, 8)
+    cases = [("main-path candidates", doc_packed, cand, q_terms, q_valid),
+             ("rows all sentinel", doc_packed,
+              torch.full_like(cand[:256], n_docs), q_terms[:256],
+              q_valid[:256]),
+             ("pool 24", t32, ids(1000, 24, 5000), *queries(1000, 32)),
+             ("T 5 with invalid slots", t32, ids(1000, 16, 5000),
+              *queries(1000, 5)),
+             ("L 8", t8, ids(1000, 16, 5000), *queries(1000, 32))]
+    worst = 0.0
+    for label, tab, c, qt, qv in cases:
+        k_out = ob.bm25_match_rows(tab, c, qt, qv)
+        p_out = ob.bm25_match_rows_plain(tab, c, qt, qv)
+        torch.cuda.synchronize()
+        err = (k_out - p_out).abs().max().item()
+        worst = max(worst, err)
+        log(f"  bm25_match_rows, {label}: cand {tuple(c.shape)}, L "
+            f"{tab.shape[1] // 2}, T {qt.shape[1]}: max_abs_err {err:.3g}, "
+            f"candidates with a hit {(p_out > 0).float().mean().item():.3f}")
+        # both add the L slots in order: bit-equal
+        if not torch.equal(k_out, p_out):
+            raise AssertionError(f"bm25 match kernel != plain: {label}")
+    # the gathered-rows entry (the reference's contract), random terms
+    dt = torch.randint(-1, 64, (1000, 24, 32), generator=gen, device=dev,
+                       dtype=torch.int32)
+    dw = torch.rand((1000, 24, 32), generator=gen, device=dev)
+    qt, qv = queries(1000, 32)
     if not torch.equal(ob.bm25_match_scores(dt, dw, qt, qv),
                        ob.bm25_match_scores_plain(dt, dw, qt, qv)):
-        raise AssertionError("bm25 match kernel != plain at pool 24")
-    log("  bm25 match (1000, 24) random terms: bit-equal")
-    return err, args
+        raise AssertionError("bm25 match kernel != plain at pool 24 on "
+                             "gathered rows")
+    log("  bm25_match_scores (gathered rows) (1000, 24) random terms: "
+        "bit-equal")
+    return worst, (doc_packed, cand, q_terms, q_valid)
+
+
+def check_no_gathered_copy(call):
+    """Run one recorded `bm25_topk` call again under a dispatch mode that
+    sees every tensor op: fail if any op other than a view reads the
+    doc-major table (a gathered copy of its rows), if the call reaches
+    the gathered-rows entry `bm25_match_scores`, or if it does not launch
+    the fused kernel once. Returns the names of the ops that touched the
+    table."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from rag_application_tpu_torch.ops import bm25 as ob
+
+    args, kwargs, _, _ = call
+    base = args[2].untyped_storage().data_ptr()
+
+    def on_table(t):
+        return isinstance(t, torch.Tensor) \
+            and t.untyped_storage().data_ptr() == base
+
+    touched, copies = [], []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, a=(), kw=None):
+            out = func(*a, **(kw or {}))
+            if any(on_table(t) for t in tree_leaves((a, kw))):
+                touched.append(str(func))
+                if not all(on_table(t) for t in tree_leaves(out)
+                           if isinstance(t, torch.Tensor)):
+                    copies.append(str(func))
+            return out
+
+    before = (ob.bm25_match_rows.launches, ob.bm25_match_scores.launches)
+    with Watch():
+        ob.bm25_topk(*args, **kwargs)
+    torch.cuda.synchronize()
+    rose = (ob.bm25_match_rows.launches - before[0],
+            ob.bm25_match_scores.launches - before[1])
+    if copies or rose != (1, 0):
+        raise AssertionError(f"bm25_topk on the card: ops copying the "
+                             f"table {copies}, launches (rows, gathered) "
+                             f"{rose}")
+    return touched
 
 
 @contextlib.contextmanager
@@ -540,7 +640,7 @@ def recording(module, name, counts=None):
 
 
 def check_recorded(label, scans, matches):
-    """Each recorded `scan_sheet` and `bm25_match_scores` launch of a path,
+    """Each recorded `scan_sheet` and `bm25_match_rows` launch of a path,
     against the plain version on the same inputs: int8 sheets bit-equal;
     f32 sheets within 2 d 2^-24 (each side within d 2^-24 of the exact
     dot of unit prefixes) with other ids only at near-ties; BM25
@@ -582,9 +682,10 @@ def check_recorded(label, scans, matches):
             raise AssertionError(f"scan kernel != plain: {line}")
     bm25_err = 0.0
     for args, _, out, _ in matches:
-        plain = ob.bm25_match_scores_plain(*args)
+        plain = ob.bm25_match_rows_plain(*args)
         bm25_err = max(bm25_err, (out - plain).abs().max().item())
-        line = f"{label}: bm25 match {tuple(args[0].shape)}"
+        line = (f"{label}: bm25 match rows {tuple(args[1].shape)} of "
+                f"{tuple(args[0].shape)}")
         log(f"  {line}: bit-equal {torch.equal(out, plain)}")
         if not torch.equal(out, plain):
             raise AssertionError(f"bm25 match kernel != plain: {line}")
@@ -624,12 +725,14 @@ def time_scan(dense, q):
     int8 packed scan at the main-path shape and at the tokens wire's; the
     cascade's bf16 prefix-128 scan on the bf16 tensor-core kernel at the
     main-path shape, the tokens wire's bf16 prefix-64 scan, and the
-    CUDA-core kernel once at the main bf16 shape (f32 queries take it).
-    Returns the JSON line's numbers for (the int8 scan, the bf16 scan)."""
+    CUDA-core kernel at the main bf16 shape (f32 queries take it) and on
+    an f32 corpus beside `torch.matmul` in full f32. Returns the JSON
+    line's numbers for (the int8 scan, the bf16 scan)."""
     import torch
 
     from rag_application_tpu_torch.ops import fused_topk as ft
     from rag_application_tpu_torch.ops.quant import quantize_int8
+    from rag_application_tpu_torch.utils import full_f32_matmul
 
     qn = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
     q8 = quantize_int8(qn)
@@ -655,11 +758,15 @@ def time_scan(dense, q):
     tok_ms = cuda_ms(lambda: ft.scan_sheet(dense.int8[:tok_rows],
                                            q8[:tok_q], None, None, **kw),
                      reps=50)
+    tok_lib_ms = cuda_ms(lambda: torch._int_mm(q8[:tok_q],
+                                               dense.int8[:tok_rows].t()),
+                         reps=50)
     tok_bnd, tok_by = scan_bound(tok_rows, tok_q, DIM, BLOCK)
     log(f"  fused_scan int8 packed, tokens-wire shape ({tok_rows}x{DIM}, "
         f"{tok_q} queries, block {BLOCK}, "
         f"{scan_ctas(tok_q, tok_rows, BLOCK)} thread blocks on 132 SMs): "
-        f"kernel {tok_ms:.4f} ms, bound {tok_bnd:.4f} ms ({tok_by})")
+        f"kernel {tok_ms:.4f} ms, torch._int_mm {tok_lib_ms:.4f} ms, bound "
+        f"{tok_bnd:.4f} ms ({tok_by})")
 
     # the cascade's bf16 prefix-128 scan (general path): bf16 queries take
     # the bf16 tensor-core kernel
@@ -691,6 +798,30 @@ def time_scan(dense, q):
         raise AssertionError("f32 queries missed the CUDA-core kernel")
     log(f"  fused_scan CUDA-core kernel, the same scan with f32 queries: "
         f"kernel {core_ms:.3f} ms")
+    # the CUDA-core kernel on its own ground, an f32 corpus: the prefix
+    # rows cast to f32, beside torch.matmul in full f32 (TF32 off)
+    f_rows = 262144
+    cf = cb[:f_rows].float()
+    if_ = inv0[:f_rows]
+    before = dict(ft.route_launches)
+    f_ms = cuda_ms(lambda: ft.scan_sheet(cf, qf, if_, None, **kw), reps=2)
+    if rose(ft.route_launches, before) != ["fused_scan"]:
+        raise AssertionError("the f32 corpus missed the CUDA-core kernel")
+    f_plain_ms = cuda_ms(lambda: ft.scan_sheet_plain(cf, qf, if_, None,
+                                                     **kw), reps=1)
+    with full_f32_matmul():
+        f_lib_ms = cuda_ms(lambda: torch.matmul(qf, cf.t()), reps=2)
+    f_bytes = f_rows * 128 * 4 + BATCH * 128 * 4 + f_rows * 4 \
+        + f_rows // BLOCK * BATCH * 128 * 8
+    f_ops = 2.0 * BATCH * f_rows * 128
+    f_bnd = max(f_bytes / HBM_BYTES_S, f_ops / F32_OPS_S) * 1e3
+    log(f"  fused_scan CUDA-core kernel, f32 corpus ({f_rows}x128 f32, "
+        f"{BATCH} f32 queries, block {BLOCK}): kernel {f_ms:.3f} ms, plain "
+        f"{f_plain_ms:.3f} ms, torch.matmul (f32, TF32 off) {f_lib_ms:.3f} "
+        f"ms, bound {f_bnd:.3f} ms (operations: the f32 dot at "
+        f"{F32_OPS_S / 1e12:.0f} TFLOP/s; bytes alone "
+        f"{f_bytes / HBM_BYTES_S * 1e3:.4f} ms)")
+    del cf
     torch.cuda.empty_cache()
 
     # the tokens wire's bf16 scan: prefix 64 (128 columns loaded, the query
@@ -712,25 +843,120 @@ def time_scan(dense, q):
             (bf_ms, bf_plain_ms, bf_lib_ms, bf_bnd, bf_by))
 
 
-def time_kernels(dense, q, bm25_args):
-    """Kernel, plain and library ms at the full main-path shapes."""
+def kernel_times(fn, reps: int) -> dict:
+    """{kernel name: (device ms per launch, launches per call)} of the
+    CUDA kernels ``fn`` runs, from torch.profiler over ``reps`` calls
+    after one warm-up call. Per launch, as the profiler now and then
+    misses a launch of many."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(2):  # a window with no device events, once more
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = {e.key: (e.self_device_time_total / 1e3 / e.count,
+                         e.count / reps)
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.count}
+        if times:
+            break
+    return times
+
+
+def time_stage2(label, args):
+    """BM25's stage 2 on the card at one path's shape: before this design
+    (the PyTorch gather of the candidates' packed rows, which the match
+    kernel then read back) and the fused kernel that reads the rows by id,
+    device times from the profiler, beside the plain version and the
+    bound. "Cold" zeroes a 256 MB buffer (past the 50 MB L2) before each
+    call, as the path's stage 1 streams more than the L2 holds before
+    stage 2; "hot" repeats the call on rows the L2 may still hold.
+    Returns (cold ms, plain_ms, None, bound_ms, bound_by)."""
+    import math
+
+    import torch
+
     from rag_application_tpu_torch.ops import bm25 as ob
 
+    doc_packed, cand, qt, qv = args
+    q_, pool = cand.shape
+    l, t = doc_packed.shape[1] // 2, qt.shape[1]
+    cl = cand.long()
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=cand.device)
+
+    def cold(fn):
+        return lambda: (flush.zero_(), fn())
+
+    def others(times):
+        """Device ms a call of the kernels other than the flush's fill."""
+        return sum(ms * max(1, round(n)) for k, (ms, n) in times.items()
+                   if "Fill" not in k)
+
+    def match(times):
+        ms, n = next((v for k, v in times.items() if "bm25_match" in k),
+                     (0.0, 0.0))
+        if round(n) != 1:
+            raise AssertionError(f"expected one bm25_match launch a call, "
+                                 f"saw {n}: {sorted(times)}")
+        return ms
+
+    packed = doc_packed[cl]
+    dt, dw = packed[..., :l], packed[..., l:].view(torch.float32)
+    gather = lambda: doc_packed[cl]  # noqa: E731
+    on_rows = lambda: ob.bm25_match_scores(dt, dw, qt, qv)  # noqa: E731
+    fused = lambda: ob.bm25_match_rows(doc_packed, cand, qt, qv)  # noqa: E731
+    g_hot, g_cold = others(kernel_times(gather, 20)), \
+        others(kernel_times(cold(gather), 20))
+    r_hot, r_cold = match(kernel_times(on_rows, 20)), \
+        match(kernel_times(cold(on_rows), 20))
+    del packed, dt, dw
+    f_hot, f_cold = match(kernel_times(fused, 20)), \
+        match(kernel_times(cold(fused), 20))
+    # what the fused kernel waits on: the same rows with the query side
+    # cut (T 1: no sort, no search step; T 8: three steps), and every
+    # candidate the sentinel row (its row stays in L2)
+    sent = torch.full_like(cand, doc_packed.shape[0] - 1)
+    parts = {f"T {tt}": (doc_packed, cand, qt[:, :tt].contiguous(),
+                         qv[:, :tt].contiguous()) for tt in (1, 8)}
+    parts["all sentinel"] = (doc_packed, sent, qt, qv)
+    cut = []
+    for k, a in parts.items():
+        fn = cold(lambda a=a: ob.bm25_match_rows(*a))
+        cut.append(f"{k} {match(kernel_times(fn, 20)):.5f}")
+    log(f"  bm25 stage 2, {label}, the fused kernel with parts of its work "
+        f"cut (device ms cold): {', '.join(cut)}")
+    del flush, sent, parts
+    plain_ms = device_ms(
+        lambda: ob.bm25_match_rows_plain(doc_packed, cand, qt, qv), 3)
+    # each input read once: the ids, the distinct rows they name, the
+    # query terms and flags; the scores written once. Operations: a
+    # search of ceil(log2 T) steps and an add for each doc term, and the
+    # T x T rank counts of the sort.
+    rows = torch.unique(cand).numel()
+    nbytes = q_ * pool * 4 + rows * 2 * l * 4 + q_ * t * 5 + q_ * pool * 4
+    ops = q_ * pool * l * (math.ceil(math.log2(max(t, 2))) + 1) + q_ * t * t
+    bound = max(nbytes / HBM_BYTES_S, ops / F32_OPS_S) * 1e3
+    by = "bytes" if nbytes / HBM_BYTES_S >= ops / F32_OPS_S else "operations"
+    log(f"  bm25 stage 2, {label}: cand {tuple(cand.shape)}, L {l}, T {t}; "
+        f"device ms cold / hot. Before: the gather of the packed rows "
+        f"{g_cold:.5f} / {g_hot:.5f}, then the match on the gathered rows "
+        f"({r_cold:.5f} / {r_hot:.5f} with this design's kernel). After: "
+        f"bm25_match_rows {f_cold:.5f} / {f_hot:.5f}. Plain {plain_ms:.4f};"
+        f" bound {bound:.5f} ({by}: {nbytes / 1e6:.2f} MB, {rows:,} distinct "
+        f"rows)")
+    return f_cold, plain_ms, None, bound, by
+
+
+def time_kernels(dense, q, bm25_args):
+    """Kernel, plain and library ms at the full main-path shapes."""
     scan_t, scan_bf_t = time_scan(dense, q)
-    dt, dw, qt, qv = bm25_args
-    m_ms = cuda_ms(lambda: ob.bm25_match_scores(dt, dw, qt, qv), reps=20)
-    m_plain_ms = cuda_ms(lambda: ob.bm25_match_scores_plain(dt, dw, qt, qv),
-                         reps=5)
-    q_, pool, l = dt.shape
-    t = qt.shape[1]
-    m_bytes = q_ * pool * l * 8 + q_ * t * 5 + q_ * pool * 4
-    m_ops = q_ * pool * l * (t + 1)
-    m_bound = max(m_bytes / HBM_BYTES_S, m_ops / F32_OPS_S) * 1e3
-    m_by = "bytes" if m_bytes / HBM_BYTES_S >= m_ops / F32_OPS_S \
-        else "operations"
-    log(f"  bm25_match {tuple(dt.shape)}: kernel {m_ms:.4f} ms, plain "
-        f"{m_plain_ms:.4f} ms, bound {m_bound:.4f} ms")
-    return scan_t, scan_bf_t, (m_ms, m_plain_ms, None, m_bound, m_by)
+    return scan_t, scan_bf_t, time_stage2("main path", bm25_args)
 
 
 def run_main_path(dense, sparse, tokens, rng):
@@ -743,6 +969,7 @@ def run_main_path(dense, sparse, tokens, rng):
     from rag_application_tpu_torch.ops import bm25 as ob
     from rag_application_tpu_torch.ops import fused_topk as ft
     from rag_application_tpu_torch.ops.rrf import INVALID_ID
+    from rag_application_tpu_torch.search import fused as fs
     from rag_application_tpu_torch.search.fused import FusedSearcher
 
     funnel = FunnelConfig(matryoshka_limits=(512, 256), dense_limit=24,
@@ -756,6 +983,7 @@ def run_main_path(dense, sparse, tokens, rng):
         ("cascade + rrf", True, "rrf"), ("cascade + dbsf", True, "dbsf")]
 
     reset_scan_counts(ft)
+    ob.bm25_match_rows.launches = 0
     ob.bm25_match_scores.launches = 0
     results, times, lines = [], [], []
     for (label, matryoshka, fusion), (q, texts) in zip(plan, batches):
@@ -778,17 +1006,25 @@ def run_main_path(dense, sparse, tokens, rng):
                      f"{getattr(ft.fused_scan_topk, 'last_path', None)}")
         log(lines[-1])
     launches = {**scan_counts(ft),
-                "bm25_match": ob.bm25_match_scores.launches}
+                "bm25_match": ob.bm25_match_rows.launches}
     if ft.route_launches["fused_scan"]:
         raise AssertionError(f"the main path fell to the CUDA-core scan "
                              f"kernel: {ft.route_launches}")
+    if ob.bm25_match_scores.launches:
+        raise AssertionError("bm25_topk reached the gathered-rows entry "
+                             "bm25_match_scores")
     profile_batch(searcher, *batches[0], funnel)
     # one more cascade batch, its kernel launches held against plain
     with recording(ft, "scan_sheet", ft.route_launches) as scans, \
-            recording(ob, "bm25_match_scores") as matches:
+            recording(ob, "bm25_match_rows") as matches, \
+            recording(fs, "bm25_topk") as topks:
         searcher.search(*batches[3], K, use_matryoshka=True, funnel=funnel)
     errs = check_recorded("cascade batch", scans, matches)
-    del scans, matches
+    touched = check_no_gathered_copy(topks[0])
+    log(f"  bm25_topk on the card: the table is touched only by views "
+        f"({sorted(set(touched))}), no gathered copy; one bm25_match_rows "
+        f"launch")
+    del scans, matches, topks
 
     for q, scores, ids in results:
         s, i = scores.cpu().numpy(), ids.cpu().numpy()
@@ -831,6 +1067,10 @@ def profile_batch(searcher, q, texts, funnel):
         f"prepare (host query encode, {type(searcher.sparse.analyzer).__name__})"
         f" {t_prep:.2f} ms; device busy {busy:.2f} ms ({busy / wall:.1%}), "
         f"idle {1 - busy / wall:.1%}")
+    stage2 = sum(e.self_device_time_total for e in kern
+                 if "bm25_match" in e.key) / 1e3
+    log(f"  BM25 stage 2 (the bm25_match kernel, reading its rows by id): "
+        f"{stage2:.4f} ms ({stage2 / busy:.2%} of the device's busy time)")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<4d} "
             f"{e.key[:96]}")
@@ -853,14 +1093,21 @@ def prep_inputs(dev, n, d, seed, special=False):
 
 
 def check_prep(dev):
-    """Kernel vs plain at six shapes. Bounds: the bf16 plane within 1 bf16
-    ulp, int8 within 1 step, inv_norms within rtol 2e-6 (~16 f32 ulps:
-    rsqrtf is not correctly rounded and the row sums add in another
-    order); zero rows exact. Returns the worst max abs error of the bf16
-    plane."""
+    """Kernel vs plain, bit for bit (the plain version adds in the
+    kernel's order): the fresh-tensor entry `prepare_vectors` at six
+    shapes, then the in-place entry `prepare_vectors_into` at three start
+    offsets of index-shaped planes filled with random bits, whose rows
+    outside the written range must stay as they were. Zero rows give
+    zeros and inverse norms of 1e6. Returns the worst max abs error of
+    the bf16 plane."""
     import torch
 
     from rag_application_tpu_torch.ops import quant as oq
+
+    def same(a, b):
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        return torch.equal(a, b)
 
     cases = [(f"slab {PREP_SLAB} x {DIM}", PREP_SLAB, DIM, PREP_DIMS, False),
              (f"document {EMB_BATCH} x {DIM}", EMB_BATCH, DIM, PREP_DIMS,
@@ -873,27 +1120,49 @@ def check_prep(dev):
     worst = 0.0
     for i, (label, n, d, dims, special) in enumerate(cases):
         x = prep_inputs(dev, n, d, 20 + i, special)
-        kn, k8, ki = oq.prepare_vectors(x, dims)
-        pn, p8, pi = oq.prepare_vectors_plain(x, dims)
+        kern = oq.prepare_vectors(x, dims)
+        plain = oq.prepare_vectors_plain(x, dims)
         torch.cuda.synchronize()
-        kb = kn.view(torch.int16).int() & 0xFFFF
-        pb = pn.view(torch.int16).int() & 0xFFFF
-        bits = (kb - pb).abs().max().item()
-        err = (kn.float() - pn.float()).abs().max().item()
-        d8 = (k8.int() - p8.int()).abs()
-        rel = ((ki - pi).abs() / pi.abs()).max().item() if dims else 0.0
-        log(f"  prep {label}, dims {dims}: bf16 max_abs_err {err:.3g} "
-            f"({bits} ulp, {(kb != pb).float().mean().item():.2e} of "
-            f"elements differ), int8 max step {d8.max().item()} "
-            f"({(d8 != 0).float().mean().item():.2e} differ), inv_norms max "
-            f"rel err {rel:.3g}")
-        ok = bits <= 1 and d8.max().item() <= 1 and rel <= 2e-6
+        err = (kern[0].float() - plain[0].float()).abs().max().item()
+        equal = [same(a, b) for a, b in zip(kern, plain)]
+        log(f"  prep {label}, dims {dims}: bf16 / int8 / inv_norms "
+            f"bit-equal {equal}; bf16 max_abs_err {err:.3g}")
+        ok = all(equal)
         if special:
-            ok = ok and not kn[0].float().any() and not k8[0].any() \
-                and bool((ki[0] == 1e6).all().item())
+            ok = ok and not kern[0][0].float().any() and not kern[1][0].any() \
+                and bool((kern[2][0] == 1e6).all().item())
         if not ok:
             raise AssertionError(f"prep_vectors kernel != plain: {label}")
         worst = max(worst, err)
+
+    # the in-place entry: rows [start, start + n) of a 4096-row index's
+    # planes, between guard rows of random bits
+    cap = 4096
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for start, n in ((0, EMB_BATCH), (1000, EMB_BATCH), (cap - 1037, 1037)):
+        planes = [
+            torch.randint(-2**15, 2**15, (cap, DIM), generator=gen,
+                          device=dev, dtype=torch.int16).view(torch.bfloat16),
+            torch.randint(-128, 128, (cap, DIM), generator=gen, device=dev,
+                          dtype=torch.int8),
+            torch.randn((cap, len(PREP_DIMS)), generator=gen, device=dev),
+            torch.rand((cap,), generator=gen, device=dev) > 0.5]
+        before = [p.clone() for p in planes]
+        x = prep_inputs(dev, n, DIM, 60 + start, special=True)
+        oq.prepare_vectors_into(x, PREP_DIMS, *planes, start)
+        want = (*oq.prepare_vectors_plain(x, PREP_DIMS),
+                torch.ones(n, dtype=torch.bool, device=dev))
+        torch.cuda.synchronize()
+        end = start + n
+        rows = [same(p[start:end], w) for p, w in zip(planes, want)]
+        guards = [same(p[:start], b[:start]) and same(p[end:], b[end:])
+                  for p, b in zip(planes, before)]
+        log(f"  prep in place, rows [{start}, {end}) of {cap}: vecs / int8 /"
+            f" inv_norms / live bit-equal {rows}, guard rows untouched "
+            f"{guards}")
+        if not all(rows) or not all(guards):
+            raise AssertionError(f"prepare_vectors_into at {start}: rows "
+                                 f"{rows}, guards {guards}")
     return worst
 
 
@@ -930,34 +1199,78 @@ def device_ms(fn, reps: int, match: str | None = None, *more: str):
 
 def time_prep(dev):
     """Kernel and plain ms at the slab and the document shape, beside the
-    bytes bound (the function moves 4d bytes in and 3d + 4M out per
-    row). The times are device times from the profiler; at the document
-    shape CUDA events around back-to-back calls measure the host's
-    enqueue rate instead, which is logged beside them. Returns (ms,
-    plain_ms, None, bound_ms, bound_by) for each, the slab's first; the
-    document's is the shape `[ingest]` launches."""
+    bytes bound (the function moves 4d bytes in and 3d + 4M + 1 out per
+    row). The kernel is timed as `DenseIndex.insert` launches it, in
+    place into an index's planes (rows 1000 on for the document), and
+    beside it through the fresh-tensor entry. The times are device times
+    from the profiler; at the document shape CUDA events around
+    back-to-back calls measure the host's enqueue rate instead, which is
+    logged beside them. Returns (ms, plain_ms, None, bound_ms, bound_by)
+    for each, the slab's first; the document's is the shape `[ingest]`
+    launches."""
+    import torch
+
     from rag_application_tpu_torch.ops import quant as oq
 
+    def prep_ms(times):
+        ms, n = next((v for k, v in times.items() if "prep_vectors_" in k),
+                     (0.0, 0.0))
+        if round(n) != 1:
+            raise AssertionError(f"expected one prep launch a call, saw {n}")
+        return ms
+
     out = []
-    for n, reps in ((PREP_SLAB, 20), (EMB_BATCH, 200)):
+    for n, start, reps in ((PREP_SLAB, 0, 20), (EMB_BATCH, 1000, 200)):
         x = prep_inputs(dev, n, DIM, 40)
-        run = lambda: oq.prepare_vectors(x, PREP_DIMS)  # noqa: E731
+        cap = start + n
+        planes = (torch.zeros((cap, DIM), dtype=torch.bfloat16, device=dev),
+                  torch.zeros((cap, DIM), dtype=torch.int8, device=dev),
+                  torch.zeros((cap, len(PREP_DIMS)), device=dev),
+                  torch.zeros((cap,), dtype=torch.bool, device=dev))
+        run = lambda: oq.prepare_vectors_into(  # noqa: E731
+            x, PREP_DIMS, *planes, start)
+        fresh = lambda: oq.prepare_vectors(x, PREP_DIMS)  # noqa: E731
         plain = lambda: oq.prepare_vectors_plain(x, PREP_DIMS)  # noqa: E731
-        ms = device_ms(run, reps, match="prep_vectors_kernel")
+        ms = prep_ms(kernel_times(run, reps))
+        fresh_ms = prep_ms(kernel_times(fresh, reps))
         plain_ms = device_ms(plain, max(5, reps // 10))
         paced = cuda_ms(run, reps=reps)
         paced_plain = cuda_ms(plain, reps=max(5, reps // 10))
-        nbytes = n * DIM * 4 + n * DIM * 3 + n * len(PREP_DIMS) * 4
+        nbytes = n * DIM * 4 + n * DIM * 3 + n * len(PREP_DIMS) * 4 + n
         ops = n * DIM * (8 + len(PREP_DIMS))
         bound = max(nbytes / HBM_BYTES_S, ops / F32_OPS_S) * 1e3
         by = "bytes" if nbytes / HBM_BYTES_S >= ops / F32_OPS_S \
             else "operations"
-        log(f"  prep_vectors {n} x {DIM}, dims {PREP_DIMS}: kernel "
-            f"{ms:.5f} ms, plain {plain_ms:.5f} ms (device time, profiler);"
-            f" back-to-back calls by CUDA events: kernel {paced:.5f} ms, "
-            f"plain {paced_plain:.5f} ms; bound {bound:.5f} ms ({by}: "
-            f"{nbytes / 1e6:.3f} MB), no library call")
+        log(f"  prep_vectors {n} x {DIM}, dims {PREP_DIMS}: kernel in place "
+            f"{ms:.5f} ms (into new tensors {fresh_ms:.5f}), plain "
+            f"{plain_ms:.5f} ms (device time, profiler); back-to-back calls "
+            f"by CUDA events: kernel {paced:.5f} ms, plain {paced_plain:.5f}"
+            f" ms; bound {bound:.5f} ms ({by}: {nbytes / 1e6:.3f} MB), no "
+            f"library call")
         out.append((ms, plain_ms, None, bound, by))
+        del planes
+    # what a document's launch waits on: the same kernel with parts of its
+    # work taken away through its arguments (one row: one warp's chain;
+    # no prefix dims; no bf16 / int8 planes written)
+    x = prep_inputs(dev, EMB_BATCH, DIM, 40)
+    cap = 1000 + EMB_BATCH
+    inv = torch.zeros((cap, len(PREP_DIMS)), device=dev)
+    live = torch.zeros((cap,), dtype=torch.bool, device=dev)
+    vecs = torch.zeros((cap, DIM), dtype=torch.bfloat16, device=dev)
+    i8 = torch.zeros((cap, DIM), dtype=torch.int8, device=dev)
+    parts = {
+        "one row": lambda: oq.prepare_vectors_into(
+            x[:1], PREP_DIMS, vecs, i8, inv, live, 1000),
+        "no prefix dims": lambda: oq.prepare_vectors_into(
+            x, (), vecs, i8, inv[:, :0].contiguous(), live, 1000),
+        "no planes written": lambda: oq.prepare_vectors_into(
+            x, PREP_DIMS, None, None, inv, live, 1000),
+        "one row, nothing but live": lambda: oq.prepare_vectors_into(
+            x[:1], (), None, None, inv[:, :0].contiguous(), live, 1000)}
+    log(f"  prep_vectors {EMB_BATCH} x {DIM} with parts of its work taken "
+        f"away (device ms a launch): " + ", ".join(
+            f"{k} {prep_ms(kernel_times(fn, 200)):.5f}"
+            for k, fn in parts.items()))
     return out
 
 
@@ -971,13 +1284,16 @@ def ingest_texts(rng):
 
 def run_ingest(dev):
     """The write path: Embedder.encode then store_document_vectors, one
-    call each per document. Returns (collection, embedder, tokens,
-    texts, prepare_vectors launches)."""
+    call each per document, then a document's `DenseIndex.insert` alone
+    under the profiler, which must be the upload and one in-place prep
+    launch. Returns (collection, embedder, tokens, texts,
+    prepare_vectors_into launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from rag_application_tpu_torch.config import Config, EncoderConfig
+    from rag_application_tpu_torch.index.dense import DenseIndex
     from rag_application_tpu_torch.models.embedder import Embedder
     from rag_application_tpu_torch.ops import quant as oq
     from rag_application_tpu_torch.store.collection import Collection
@@ -994,6 +1310,7 @@ def run_ingest(dev):
         f"texts, encoder {nparams / 1e6:.2f}M params (random, seed 0)")
 
     torch.cuda.reset_peak_memory_stats()
+    oq.prepare_vectors_into.launches = 0
     oq.prepare_vectors.launches = 0
     enc_host, store_host, marks = [], [], []
     busy = wall = None
@@ -1027,7 +1344,8 @@ def run_ingest(dev):
             kern = [e for e in prof.key_averages()
                     if e.device_type == DeviceType.CUDA]
             busy = sum(e.self_device_time_total for e in kern) / 1e3
-    launches = oq.prepare_vectors.launches
+    launches = oq.prepare_vectors_into.launches
+    fresh = oq.prepare_vectors.launches
     # rates and means over the unprofiled documents
     marks, enc_host, store_host = marks[:-1], enc_host[:-1], store_host[:-1]
     enc_ev = [e[0].elapsed_time(e[1]) for e in marks]
@@ -1050,13 +1368,32 @@ def run_ingest(dev):
             f"{e.key[:90]}")
     log(f"  device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         f"(peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB); "
-        f"prepare_vectors launches {launches} (one per document: "
-        f"{INGEST_DOCS}); encoder cache {len(emb.cache)} entries")
-    if launches != INGEST_DOCS:
-        raise AssertionError(f"prepare_vectors launched {launches} times "
-                             f"for {INGEST_DOCS} documents")
+        f"prepare_vectors_into launches {launches} (one per document: "
+        f"{INGEST_DOCS}), prepare_vectors {fresh}; encoder cache "
+        f"{len(emb.cache)} entries")
+    if launches != INGEST_DOCS or fresh:
+        raise AssertionError(f"prep launched {launches} times in place and "
+                             f"{fresh} into new tensors for {INGEST_DOCS} "
+                             f"documents")
     if col.chunk_count() != n or col.dense.size != n:
         raise AssertionError(f"stored {col.chunk_count()} chunks, not {n}")
+
+    # one document's DenseIndex.insert alone: the upload of its vectors
+    # and one prep launch, which writes the planes and the live flags
+    # (20 inserts under the profiler, which now and then misses a launch
+    # of a short window)
+    idx = DenseIndex(Config().index, device=dev)
+    idx.insert(vecs)
+    times = kernel_times(lambda: idx.insert(vecs), 20)
+    kernels = {k: n for k, (_, n) in times.items()
+               if not k.startswith("Memcpy")}
+    log(f"  DenseIndex.insert of one document ({vecs.shape[0]} x "
+        f"{vecs.shape[1]}, Config().index), device operations an insert: "
+        f"{ {k[:60]: round(n, 2) for k, (_, n) in times.items()} }")
+    if len(kernels) != 1 or round(next(iter(kernels.values()))) != 1 \
+            or "prep_vectors_" not in next(iter(kernels)):
+        raise AssertionError(f"DenseIndex.insert ran {kernels}, not one "
+                             f"prep launch")
     return col, emb, tokens, texts, launches
 
 
@@ -1103,6 +1440,7 @@ def run_tokens(col, emb, tokens):
     torch.cuda.synchronize()
 
     reset_scan_counts(ft)
+    ob.bm25_match_rows.launches = 0
     ob.bm25_match_scores.launches = 0
     times, results = [], []
     for _, texts in batches:
@@ -1118,19 +1456,24 @@ def run_tokens(col, emb, tokens):
                       (time.perf_counter() - t0) * 1e3))
         results.append(hits)
     launches = {**scan_counts(ft),
-                "bm25_match": ob.bm25_match_scores.launches}
+                "bm25_match": ob.bm25_match_rows.launches}
     if ft.route_launches["fused_scan"]:
         raise AssertionError(f"the tokens wire fell to the CUDA-core scan "
                              f"kernel: {ft.route_launches}")
+    if ob.bm25_match_scores.launches:
+        raise AssertionError("the tokens wire reached the gathered-rows "
+                             "entry bm25_match_scores")
     log(f"  hybrid_search_text_batch, {TOK_BATCHES} batches of {TOK_BATCH}: "
         f"ms/batch (CUDA events) {[round(t[0], 2) for t in times]}, host "
         f"{[round(t[1], 2) for t in times]}; launches {launches}")
     # the path's own kernel launches (the cascade's bf16 prefix scan, the
     # int8 scan, the BM25 match at the collection's pool) against plain
     with recording(ft, "scan_sheet", ft.route_launches) as scans, \
-            recording(ob, "bm25_match_scores") as matches:
+            recording(ob, "bm25_match_rows") as matches:
         col.hybrid_search_text_batch(batches[0][1], K)
     errs = [check_recorded("tokens wire", scans, matches)]
+    time_stage2("tokens wire", matches[0][0])
+    del scans, matches
 
     # decomposition of one batch: host tokenize, sparse query encode,
     # upload of the ids, device (encoder forward + funnel)
@@ -1213,7 +1556,7 @@ def run_tokens(col, emb, tokens):
     _, raw = col._fused.search_tokens(ids_b, texts, K, attn_mask=am_b,
                                       funnel=col._funnel(None, True))
     with recording(ft, "scan_sheet", ft.route_launches) as scans, \
-            recording(ob, "bm25_match_scores") as matches:
+            recording(ob, "bm25_match_rows") as matches:
         after_hits = col.hybrid_search_text_batch(texts, K)
     if not all(args[3] is not None for args, _, _, _ in scans):
         raise AssertionError("a scan after delete_document ran unmasked")
@@ -1465,7 +1808,7 @@ def run_generate(dev):
 
     torch.cuda.reset_peak_memory_stats()
     reset_scan_counts(ft)
-    ob.bm25_match_scores.launches = 0
+    ob.bm25_match_rows.launches = 0
     da.decode_attend_int8.launches = 0
     t0 = time.perf_counter()
     ev[2].record()
@@ -1493,7 +1836,7 @@ def run_generate(dev):
     log(f"  decode_attn launches in generate: {launches} (the loop implies "
         f"{cfg.num_layers} layers x {GEN_NEW} steps = {want}); fused_scan "
         f"{ft.scan_sheet.launches}, bm25_match "
-        f"{ob.bm25_match_scores.launches}")
+        f"{ob.bm25_match_rows.launches}")
     if launches != want:
         raise AssertionError(f"decode_attn launched {launches} times, "
                              f"expected {want}")
@@ -1634,6 +1977,30 @@ def scan_only(dev, card) -> int:
     return 0
 
 
+def match_prep_only(dev, card) -> int:
+    """`--match-prep`: the BM25 match and prep kernels' checks and times
+    alone (the sparse table only; no dense table, search, write path or
+    generation), for kernel work on either."""
+    import torch
+
+    log("[prep-check] prepare_vectors kernel vs plain on the card")
+    check_prep(dev)
+    log(f"[prep-time] prepare_vectors at the slab and document shapes "
+        f"({card})")
+    time_prep(dev)
+    torch.cuda.empty_cache()
+    sparse, tokens, rng, t_sparse = build_sparse(dev)
+    log(f"[tables] sparse {N} docs in {t_sparse:.1f} s")
+    texts = [" ".join(f"w{t}" for t in tokens[i])
+             for i in rng.integers(0, N, size=BATCH)]
+    log("[check] bm25 match kernel vs plain on the card")
+    _, args = check_bm25(sparse, texts)
+    log(f"[time] bm25 stage 2 at the main-path shape ({card})")
+    time_stage2("main path", args)
+    log(card)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1664,17 +2031,19 @@ def main() -> int:
         return scan_only(dev, card)
     if sys.argv[1:] == ["--attn"]:
         return attn_only(dev, card)
+    if sys.argv[1:] == ["--match-prep"]:
+        return match_prep_only(dev, card)
 
     from rag_application_tpu_torch.ops import quant as oq
 
-    oq.prepare_vectors.launches = 0
+    oq.prepare_vectors_into.launches = 0
     dense, cap, sparse, tokens, rng, t_dense, t_sparse = build_tables(dev)
-    table_preps = oq.prepare_vectors.launches
+    table_preps = oq.prepare_vectors_into.launches
     log(f"[tables] dense {N}x{DIM} built in {t_dense:.1f} s, sparse {N} "
         f"docs in {t_sparse:.1f} s; device memory "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; prepare_vectors "
-        f"launches {table_preps} ({N // PREP_SLAB} slabs + the capacity "
-        f"twin)")
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB; "
+        f"prepare_vectors_into launches {table_preps} ({N // PREP_SLAB} "
+        f"slabs + the capacity twin)")
     if table_preps != N // PREP_SLAB + 1:
         raise AssertionError(f"build_tables: {table_preps} prep launches")
 

@@ -1,32 +1,43 @@
 // Insert-time prep pass for Hopper (sm_90a): one read of an insert batch
-// gives every derived view the dense index stores.
+// gives every derived view the dense index stores, written in place into
+// the index's planes.
 //
 // Replaces: rag_application_tpu/ops/quant.py::_prep_kernel (the Pallas TPU
 // kernel launched by prepare_vectors). For every row x of the (N, d) f32
-// batch it computes, in f32,
-//   inv    = rsqrt(max(sum_c x[c]^2, 1e-12)),   xn = x * inv
-//   norm   = bf16(xn)                            (round to nearest even)
-//   int8   = clip(rint(xn * 127), -127, 127)     (round half to even)
-//   inv_j  = rsqrt(max(sum_{c < dims[j]} xn[c]^2, 1e-12))  for each j
-// The prefix sums take the squares of the NORMALIZED row, as the reference
-// does. A zero row gives inv = 1e6, zeros and inv_j = 1e6. The Pallas
-// wrapper pads the batch to its row block with 1.0; here every row is real
-// and nothing is padded.
+// batch it computes
+//   inv    = 1 / sqrt(max(sum_c x[c]^2, 1e-12)),   xn = x * inv
+//   norm   = bf16(xn)                              (round to nearest even)
+//   int8   = clip(rint(xn * 127), -127, 127)       (round half to even)
+//   inv_j  = 1 / sqrt(max(sum_{c < dims[j]} xn[c]^2, 1e-12))  for each j
+// and sets the row's live flag. The prefix sums take the squares of the
+// NORMALIZED row, as the reference does. A zero row gives inv = 1e6, zeros
+// and inv_j = 1e6. The Pallas wrapper pads the batch to its row block
+// with 1.0; here every row is real and nothing is padded. Each output
+// pointer may be NULL (that plane is not stored).
+//
+// Bit for bit with the plain version (`ops/quant.py::prepare_vectors_xla`):
+// every sum is a chain of f32 adds in one fixed order (element c is added
+// by lane (c / 4) % 32 in increasing c, then the 32 lane sums add by
+// halves, as the butterfly of shuffles below), squares and products are
+// single f32 multiplies (no FMA contraction: __fmul_rn / __fadd_rn), and
+// 1 / sqrt is taken in f64 and rounded once to f32. The plain version
+// repeats that order with torch ops, so the two give the same bits.
 //
 // What bounds it on the H100: bytes. A row reads 4d bytes and writes
 // 2d (bf16) + d (int8) + 4M bytes; at a 131,072 x 768 slab with M = 3 that
 // is 706 MB, 0.211 ms at 3.35 TB/s. The arithmetic is a few flops per
-// element.
+// element. At a 64-row insert (one document) the bytes take 0.1 us and
+// what is left is the chain of latencies of one row's warp.
 //
-// What this design does about it: one warp per row, 8 rows per 256-thread
-// block, so a row's sums close with warp shuffles and no shared memory or
-// block barrier. When d is a multiple of 4 every lane moves 16-byte vectors
-// (float4 in, 8-byte bf16x4 and 4-byte int8x4 out), neighbouring lanes on
-// neighbouring addresses. The first pass sums x^2; the second reads the row
-// again (it is 3 KB at d = 768, still in L1) to normalize, store, and sum
-// xn^2 into one register per prefix dim; the prefix dims are taken in
-// groups of 8 registers, so any count of them works (one group for the
-// repo's three).
+// What this design does about it: one warp per row, neighbouring lanes on
+// neighbouring 16-byte vectors. When d <= 1024 and the rows align, a
+// lane's float4s (six at d = 768) are all loaded at once and stay in
+// registers from the sum of squares to the stores, so the row is read
+// once and its loads overlap; otherwise the row is read again from L1 for
+// the second pass. Blocks hold 1 to 8 rows, the fewest that still give
+// every SM 4 blocks, so a 64-row insert spreads over 64 SMs while a slab
+// keeps 8-row blocks. The prefix dims are taken in groups of 8 registers,
+// so any count of them works (one group for the repo's three).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,8 +45,8 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int ROWS_PER_BLOCK = THREADS / 32;
+constexpr int MAX_ROWS_PER_BLOCK = 8;
+constexpr int MAX_V = 8;      // float4 a lane held in registers: d <= 1024
 constexpr int GROUP = 8;      // prefix-dim accumulators held per pass
 constexpr int MAX_DIMS = 64;  // prefix dims per launch
 
@@ -45,127 +56,213 @@ struct Dims {
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
+// 1 / sqrt(max(s, 1e-12)): f64 sqrt and division are correctly rounded,
+// and the result is rounded once to f32
+__device__ __forceinline__ float inv_norm(float s) {
+  return static_cast<float>(1.0 / sqrt(static_cast<double>(fmaxf(s, 1e-12f))));
+}
+
 __device__ __forceinline__ int8_t to_int8(float xn) {
-  const float r = fminf(fmaxf(rintf(xn * 127.0f), -127.0f), 127.0f);
+  const float r =
+      fminf(fmaxf(rintf(__fmul_rn(xn, 127.0f)), -127.0f), 127.0f);
   return static_cast<int8_t>(static_cast<int>(r));
 }
 
-// Adds xn^2 to the accumulators of the prefix dims [g, g + GROUP) that
+// Adds sq to the accumulators of the prefix dims [g, g + GROUP) that
 // element c lies in.
 __device__ __forceinline__ void add_prefix(float (&acc)[GROUP],
                                            const Dims& dims, int g, int c,
                                            float sq) {
 #pragma unroll
   for (int j = 0; j < GROUP; ++j)
-    if (g + j < dims.n && c < dims.d[g + j]) acc[j] += sq;
+    if (g + j < dims.n && c < dims.d[g + j]) acc[j] = __fadd_rn(acc[j], sq);
 }
 
-template <bool VEC4>
-__global__ void __launch_bounds__(THREADS)
-prep_vectors_kernel(const float* __restrict__ x, long long n, int d,
-                    Dims dims, __nv_bfloat16* __restrict__ norm,
-                    int8_t* __restrict__ q8, float* __restrict__ inv_out) {
+// Lane 0 writes the inverse prefix norms of group g.
+__device__ __forceinline__ void store_prefix(float (&acc)[GROUP],
+                                             const Dims& dims, int g,
+                                             int lane, float* inv_row) {
+#pragma unroll
+  for (int j = 0; j < GROUP; ++j) {
+    if (g + j >= dims.n) break;
+    const float t = inv_norm(warp_sum(acc[j]));
+    if (lane == 0) inv_row[g + j] = t;
+  }
+}
+
+// d % 4 == 0, d <= 128 * NV, x 16-byte and planes 8/4-byte aligned: the
+// row's float4s stay in registers between the passes.
+template <int NV>
+__global__ void __launch_bounds__(32 * MAX_ROWS_PER_BLOCK)
+prep_vectors_reg(const float* __restrict__ x, long long n, int d, Dims dims,
+              __nv_bfloat16* __restrict__ norm, int8_t* __restrict__ q8,
+              float* __restrict__ inv_out, uint8_t* __restrict__ live) {
   const int lane = threadIdx.x & 31;
   const long long row =
-      static_cast<long long>(blockIdx.x) * ROWS_PER_BLOCK + (threadIdx.x >> 5);
+      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) +
+      (threadIdx.x >> 5);
   if (row >= n) return;  // whole warps leave together
-  const float* xr = x + row * d;
-  __nv_bfloat16* nr = norm + row * d;
-  int8_t* qr = q8 + row * d;
-
-  // pass 1: the row's sum of squares
+  const int n4 = d / 4;
+  const float4* xv = reinterpret_cast<const float4*>(x + row * d);
+  float4 a[NV];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int v = lane + 32 * k;
+    a[k] = v < n4 ? __ldg(xv + v) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  // the sum of squares, in element order (absent vectors add +0)
   float s = 0.0f;
-  if (VEC4) {
-    const float4* xv = reinterpret_cast<const float4*>(xr);
-    for (int v = lane; v < d / 4; v += 32) {
-      const float4 a = __ldg(xv + v);
-      s += a.x * a.x + a.y * a.y + a.z * a.z + a.w * a.w;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    s = __fadd_rn(s, __fmul_rn(a[k].x, a[k].x));
+    s = __fadd_rn(s, __fmul_rn(a[k].y, a[k].y));
+    s = __fadd_rn(s, __fmul_rn(a[k].z, a[k].z));
+    s = __fadd_rn(s, __fmul_rn(a[k].w, a[k].w));
+  }
+  const float inv = inv_norm(warp_sum(s));
+
+  // normalize and store both planes
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    a[k].x = __fmul_rn(a[k].x, inv);
+    a[k].y = __fmul_rn(a[k].y, inv);
+    a[k].z = __fmul_rn(a[k].z, inv);
+    a[k].w = __fmul_rn(a[k].w, inv);
+    const int v = lane + 32 * k;
+    if (v >= n4) continue;
+    if (norm != nullptr) {
+      alignas(8) __nv_bfloat16 h[4] = {
+          __float2bfloat16_rn(a[k].x), __float2bfloat16_rn(a[k].y),
+          __float2bfloat16_rn(a[k].z), __float2bfloat16_rn(a[k].w)};
+      reinterpret_cast<uint2*>(norm + row * d)[v] =
+          *reinterpret_cast<const uint2*>(h);
     }
-  } else {
-    for (int c = lane; c < d; c += 32) {
-      const float a = __ldg(xr + c);
-      s += a * a;
+    if (q8 != nullptr) {
+      alignas(4) int8_t b[4] = {to_int8(a[k].x), to_int8(a[k].y),
+                                to_int8(a[k].z), to_int8(a[k].w)};
+      reinterpret_cast<uint32_t*>(q8 + row * d)[v] =
+          *reinterpret_cast<const uint32_t*>(b);
     }
   }
-  const float inv = rsqrtf(fmaxf(warp_sum(s), 1e-12f));
+  // the prefix sums of xn^2, GROUP dims at a time, from the registers
+  for (int g = 0; g < dims.n; g += GROUP) {
+    float acc[GROUP];
+#pragma unroll
+    for (int j = 0; j < GROUP; ++j) acc[j] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int c = 4 * (lane + 32 * k);
+      add_prefix(acc, dims, g, c, __fmul_rn(a[k].x, a[k].x));
+      add_prefix(acc, dims, g, c + 1, __fmul_rn(a[k].y, a[k].y));
+      add_prefix(acc, dims, g, c + 2, __fmul_rn(a[k].z, a[k].z));
+      add_prefix(acc, dims, g, c + 3, __fmul_rn(a[k].w, a[k].w));
+    }
+    store_prefix(acc, dims, g, lane, inv_out + row * dims.n);
+  }
+  if (live != nullptr && lane == 0) live[row] = 1;
+}
 
-  // pass 2: normalize, store both planes, and the prefix sums of xn^2 for
-  // the first GROUP dims (later groups re-read the row; none in practice)
+// Any d and alignment: scalar loads in the same element order (lane l
+// holds elements 4 (l + 32 k) + 0..3), the row read again for the second
+// pass and for each further group of prefix dims.
+__global__ void __launch_bounds__(32 * MAX_ROWS_PER_BLOCK)
+prep_vectors_any(const float* __restrict__ x, long long n, int d, Dims dims,
+              __nv_bfloat16* __restrict__ norm, int8_t* __restrict__ q8,
+              float* __restrict__ inv_out, uint8_t* __restrict__ live) {
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) +
+      (threadIdx.x >> 5);
+  if (row >= n) return;
+  const float* xr = x + row * d;
+  float s = 0.0f;
+  for (int c0 = 4 * lane; c0 < d; c0 += 128)
+    for (int c = c0; c < c0 + 4 && c < d; ++c) {
+      const float a = __ldg(xr + c);
+      s = __fadd_rn(s, __fmul_rn(a, a));
+    }
+  const float inv = inv_norm(warp_sum(s));
+
   for (int g = 0; g == 0 || g < dims.n; g += GROUP) {
     float acc[GROUP];
 #pragma unroll
     for (int j = 0; j < GROUP; ++j) acc[j] = 0.0f;
-    const bool store = g == 0;
-    if (VEC4) {
-      const float4* xv = reinterpret_cast<const float4*>(xr);
-      for (int v = lane; v < d / 4; v += 32) {
-        const float4 a = __ldg(xv + v);
-        const float e[4] = {a.x * inv, a.y * inv, a.z * inv, a.w * inv};
-        if (store) {
-          alignas(8) __nv_bfloat16 h[4];
-          alignas(4) int8_t b[4];
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            h[t] = __float2bfloat16_rn(e[t]);
-            b[t] = to_int8(e[t]);
-          }
-          reinterpret_cast<uint2*>(nr)[v] = *reinterpret_cast<const uint2*>(h);
-          reinterpret_cast<uint32_t*>(qr)[v] =
-              *reinterpret_cast<const uint32_t*>(b);
+    for (int c0 = 4 * lane; c0 < d; c0 += 128)
+      for (int c = c0; c < c0 + 4 && c < d; ++c) {
+        const float e = __fmul_rn(__ldg(xr + c), inv);
+        if (g == 0) {
+          if (norm != nullptr) norm[row * d + c] = __float2bfloat16_rn(e);
+          if (q8 != nullptr) q8[row * d + c] = to_int8(e);
         }
-#pragma unroll
-        for (int t = 0; t < 4; ++t) add_prefix(acc, dims, g, 4 * v + t,
-                                                e[t] * e[t]);
+        add_prefix(acc, dims, g, c, __fmul_rn(e, e));
       }
-    } else {
-      for (int c = lane; c < d; c += 32) {
-        const float e = __ldg(xr + c) * inv;
-        if (store) {
-          nr[c] = __float2bfloat16_rn(e);
-          qr[c] = to_int8(e);
-        }
-        add_prefix(acc, dims, g, c, e * e);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < GROUP; ++j) {
-      const float t = warp_sum(acc[j]);
-      if (lane == 0 && g + j < dims.n)
-        inv_out[row * dims.n + g + j] = rsqrtf(fmaxf(t, 1e-12f));
-    }
+    store_prefix(acc, dims, g, lane, inv_out + row * dims.n);
   }
+  if (live != nullptr && lane == 0) live[row] = 1;
+}
+
+template <int NV>
+void launch_reg(unsigned blocks, int threads, cudaStream_t st,
+                const float* x, long long n, int d, const Dims& dd,
+                __nv_bfloat16* norm, int8_t* q8, float* inv, uint8_t* live) {
+  prep_vectors_reg<NV><<<blocks, threads, 0, st>>>(x, n, d, dd, norm, q8, inv,
+                                                 live);
 }
 
 }  // namespace
 
-// x (n, d) f32; dims: n_dims host ints (<= 64); norm (n, d) bf16, q8 (n, d)
-// int8 and inv (n, n_dims) f32; all contiguous. Returns a cudaError_t
-// (0 = launched).
+// x (n, d) f32, contiguous; dims: n_dims host ints (<= 64); norm (n, d)
+// bf16, q8 (n, d) int8, inv (n, n_dims) f32 and live (n,) bool, each
+// contiguous or NULL (not written). The output pointers address the first
+// row to write, so an insert at row `start` passes each plane's row
+// `start`. Returns a cudaError_t (0 = launched).
 extern "C" int prep_vectors_launch(const float* x, long long n, int d,
                                    const int* dims, int n_dims, void* norm,
-                                   int8_t* q8, float* inv, void* stream) {
+                                   int8_t* q8, float* inv, uint8_t* live,
+                                   void* stream) {
   if (n <= 0 || d < 0 || n_dims < 0 || n_dims > MAX_DIMS ||
       (n_dims > 0 && (dims == nullptr || inv == nullptr)))
     return cudaErrorInvalidValue;
-  const long long blocks = (n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  // the fewest rows a block that still give every SM 4 blocks
+  int rows = 1;
+  while (rows < MAX_ROWS_PER_BLOCK && n / (2 * rows) >= 4LL * sms) rows *= 2;
+  const long long blocks = (n + rows - 1) / rows;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
   Dims dd;
   dd.n = n_dims;
   for (int j = 0; j < MAX_DIMS; ++j) dd.d[j] = j < n_dims ? dims[j] : 0;
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(norm);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(norm) % 8 == 0 &&
-                    reinterpret_cast<uintptr_t>(q8) % 4 == 0;
-  if (vec4)
-    prep_vectors_kernel<true><<<static_cast<unsigned>(blocks), THREADS, 0,
-                                st>>>(x, n, d, dd, out, q8, inv);
-  else
-    prep_vectors_kernel<false><<<static_cast<unsigned>(blocks), THREADS, 0,
-                                 st>>>(x, n, d, dd, out, q8, inv);
+  const unsigned nb = static_cast<unsigned>(blocks);
+  const int threads = 32 * rows;
+  const int nv = (d + 127) / 128;
+  const bool reg = d % 4 == 0 && nv >= 1 && nv <= MAX_V &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(norm) % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(q8) % 4 == 0;
+  if (!reg) {
+    prep_vectors_any<<<nb, threads, 0, st>>>(x, n, d, dd, out, q8, inv, live);
+    return cudaGetLastError();
+  }
+  switch (nv) {
+    case 1: launch_reg<1>(nb, threads, st, x, n, d, dd, out, q8, inv, live); break;
+    case 2: launch_reg<2>(nb, threads, st, x, n, d, dd, out, q8, inv, live); break;
+    case 3: launch_reg<3>(nb, threads, st, x, n, d, dd, out, q8, inv, live); break;
+    case 4: launch_reg<4>(nb, threads, st, x, n, d, dd, out, q8, inv, live); break;
+    case 5: launch_reg<5>(nb, threads, st, x, n, d, dd, out, q8, inv, live); break;
+    case 6: launch_reg<6>(nb, threads, st, x, n, d, dd, out, q8, inv, live); break;
+    case 7: launch_reg<7>(nb, threads, st, x, n, d, dd, out, q8, inv, live); break;
+    default: launch_reg<8>(nb, threads, st, x, n, d, dd, out, q8, inv, live); break;
+  }
   return cudaGetLastError();
 }

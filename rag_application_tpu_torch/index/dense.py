@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..config import IndexConfig
-from ..ops.quant import prepare_vectors, quantize_int8
+from ..ops.quant import prepare_vectors_into, quantize_int8
 from ..ops.topk import blocked_topk, gather_rescore
 from ..utils import DeviceLike, resolve_device
 
@@ -119,18 +119,18 @@ class DenseIndex:
         if self.size + n > self.capacity:
             self._grow(self.size + n)
         start, end = self.size, self.size + n
-        # one prep pass (the CUDA kernel on the card) in every storage
-        # mode; capacity mode keeps only its inv_norms, as the reference
-        norm, i8, inv = prepare_vectors(xf, self.cfg.matryoshka_dims)
-        if self.vecs is not None:
-            self.vecs[start:end] = norm
-        if self.int8 is not None:
-            if self.int8_recip is not None:
-                i8, recip = _int8_scaled(xf)
-                self.int8_recip[start:end] = recip
+        # one prep pass (one CUDA launch on the card) writes rows
+        # [start, end) of the planes in place and sets them live, in
+        # every storage mode; capacity mode's int8 is scaled per row
+        # below, as the reference
+        scaled = self.int8_recip is not None
+        prepare_vectors_into(xf, self.cfg.matryoshka_dims, self.vecs,
+                             None if scaled else self.int8, self.inv_norms,
+                             self.live, start)
+        if scaled:
+            i8, recip = _int8_scaled(xf)
+            self.int8_recip[start:end] = recip
             self.int8[start:end] = i8
-        self.inv_norms[start:end] = inv
-        self.live[start:end] = True
         if self.prefix_int8 is not None:
             self.prefix_int8[start:end] = _prefix_int8(
                 xf, self.cfg.scan_prefix_dim)

@@ -124,12 +124,13 @@ def load() -> ctypes.CDLL:
     lib.fused_scan_launch.argtypes = [p, i, ll, p, i, i, p, p, ll,
                                       i, i, i, i, p, p, p]
     lib.bm25_match_launch.restype = i
-    lib.bm25_match_launch.argtypes = [p, ll, p, ll, i, i, i, p, p, i, p, p]
+    lib.bm25_match_launch.argtypes = [p, ll, p, ll, p, ll, i, i, i, p, p, i,
+                                      p, p]
     lib.decode_attn_launch.restype = i
     lib.decode_attn_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                                        ctypes.c_float, p, p, p]
     lib.prep_vectors_launch.restype = i
-    lib.prep_vectors_launch.argtypes = [p, ll, i, p, i, p, p, p, p]
+    lib.prep_vectors_launch.argtypes = [p, ll, i, p, i, p, p, p, p, p]
     lib.kernels_error_string.restype = ctypes.c_char_p
     lib.kernels_error_string.argtypes = [i]
     _lib = lib

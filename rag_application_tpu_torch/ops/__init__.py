@@ -3,12 +3,14 @@ from .quant import (
     dequantize_int8,
     matryoshka_inv_norms,
     prepare_vectors,
+    prepare_vectors_into,
     prepare_vectors_plain,
     prepare_vectors_xla,
     quantize_int8,
 )
 from .bm25 import (
     bm25_impact_weights,
+    bm25_match_rows,
     bm25_match_scores,
     bm25_topk,
     pack_doc_major,
@@ -25,9 +27,11 @@ __all__ = [
     "dequantize_int8",
     "matryoshka_inv_norms",
     "prepare_vectors",
+    "prepare_vectors_into",
     "prepare_vectors_plain",
     "prepare_vectors_xla",
     "bm25_impact_weights",
+    "bm25_match_rows",
     "bm25_match_scores",
     "bm25_topk",
     "pack_doc_major",

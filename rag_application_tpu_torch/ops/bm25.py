@@ -11,11 +11,16 @@ stages:
      mask) and rescored exactly from the doc-major view: the match sums
      precisely the impacts BM25 assigns. Final top-k over exact scores.
 
-`bm25_match_scores` is the kernel wrapper: on CUDA tensors it launches
-`csrc/bm25_match.cu` (the port of the Pallas `_match_kernel`, with the
-sum over L fused in), on CPU tensors it runs `bm25_match_scores_plain`.
-Both add the L slots in order, so they agree bit for bit. Packed
-postings and doc-major weights are bitcast with `.view()`, never cast.
+`bm25_match_rows` and `bm25_match_scores` are the wrappers of one
+kernel, `csrc/bm25_match.cu` (the port of the Pallas `_match_kernel`,
+with the sum over L fused in). `bm25_match_rows` takes the doc-major
+table and the candidate ids, and on CUDA tensors the kernel reads each
+candidate's row itself (stage 2 of `bm25_topk`); `bm25_match_scores`
+keeps the reference's contract, rows already gathered. On CPU tensors
+each runs its plain version (`bm25_match_rows_plain` is the gather, then
+`bm25_match_scores_plain`). Kernel and plain version add the L slots in
+order, so they agree bit for bit. Packed postings and doc-major weights
+are bitcast with `.view()`, never cast.
 """
 
 from __future__ import annotations
@@ -44,28 +49,92 @@ def bm25_match_scores_plain(dt: torch.Tensor, dw: torch.Tensor,
     return acc
 
 
+def bm25_match_rows_plain(doc_packed: torch.Tensor, cand: torch.Tensor,
+                          q_terms: torch.Tensor,
+                          q_valid: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `bm25_match_rows`: the gather of the
+    candidates' packed rows, then `bm25_match_scores_plain`."""
+    l = doc_packed.shape[1] // 2
+    packed = doc_packed[cand.long()]  # (Q, pool, 2L) int32
+    return bm25_match_scores_plain(packed[..., :l],
+                                   packed[..., l:].view(torch.float32),
+                                   q_terms, q_valid)
+
+
+def _check_query(name: str, q: int, q_terms: torch.Tensor,
+                 q_valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    if q_terms.dtype != torch.int32 or q_valid.dtype != torch.bool:
+        raise TypeError(f"{name}: q_terms int32, q_valid bool")
+    if q_terms.dim() != 2 or q_terms.shape[0] != q \
+            or q_valid.shape != q_terms.shape:
+        raise ValueError(f"{name}: q_terms/q_valid must be (Q, T) with Q "
+                         f"= {q}")
+    return q_terms.contiguous(), q_valid.contiguous()
+
+
+def bm25_match_rows(doc_packed: torch.Tensor, cand: torch.Tensor,
+                    q_terms: torch.Tensor,
+                    q_valid: torch.Tensor) -> torch.Tensor:
+    """(N+1, 2L) doc-major table and (Q, pool) candidate ids vs (Q, T)
+    query terms -> (Q, pool): the match of each candidate's row.
+
+    Kernel wrapper: for CUDA tensors it launches `csrc/bm25_match.cu`,
+    which reads each candidate's packed row by id (no gathered copy);
+    for CPU tensors it runs `bm25_match_rows_plain`. ``doc_packed`` holds
+    int32 terms in columns :L and bitcast f32 weights in L:, row N the
+    sentinel; ``cand`` int32 ids in [0, N]."""
+    if doc_packed.device.type == "cpu":
+        return bm25_match_rows_plain(doc_packed, cand, q_terms, q_valid)
+    if doc_packed.device.type != "cuda":
+        raise ValueError(f"bm25_match_rows: unsupported device "
+                         f"{doc_packed.device}")
+    if doc_packed.dtype != torch.int32 or cand.dtype != torch.int32:
+        raise TypeError("bm25_match_rows: doc_packed and cand int32 needed")
+    if doc_packed.dim() != 2 or doc_packed.shape[1] % 2 \
+            or doc_packed.stride(1) != 1 or cand.dim() != 2:
+        raise ValueError("bm25_match_rows: doc_packed (N+1, 2L) with unit "
+                         "column stride and cand (Q, pool) needed")
+    q, pool = cand.shape
+    l = doc_packed.shape[1] // 2
+    q_terms, q_valid = _check_query("bm25_match_rows", q, q_terms, q_valid)
+    devs = {x.device for x in (doc_packed, cand, q_terms, q_valid)}
+    if len(devs) != 1:
+        raise ValueError("bm25_match_rows: tensors on different devices")
+    cand = cand.contiguous()
+    out = torch.empty((q, pool), dtype=torch.float32, device=cand.device)
+    if q == 0 or pool == 0:
+        return out
+    launch("bm25_match_launch", cand.device, ptr(doc_packed),
+           doc_packed.stride(0), ptr(doc_packed[:, l:]), doc_packed.stride(0),
+           ptr(cand), doc_packed.shape[0], q, pool, l, ptr(q_terms),
+           ptr(q_valid), q_terms.shape[1], ptr(out))
+    bm25_match_rows.launches += 1
+    return out
+
+
+bm25_match_rows.launches = 0
+
+
 def bm25_match_scores(dt: torch.Tensor, dw: torch.Tensor,
                       q_terms: torch.Tensor,
                       q_valid: torch.Tensor) -> torch.Tensor:
-    """(Q, pool, L) doc terms/weights vs (Q, T) query terms -> (Q, pool).
+    """(Q, pool, L) doc terms/weights vs (Q, T) query terms -> (Q, pool);
+    the reference's contract, rows already gathered.
 
-    Kernel wrapper: launches `csrc/bm25_match.cu` for CUDA tensors and
-    runs the plain version for CPU tensors. ``dt``/``dw`` may be column
-    slices of the gathered doc-major rows (unit last stride, uniform row
-    stride)."""
+    Kernel wrapper: launches `csrc/bm25_match.cu` on the rows as they lie
+    for CUDA tensors and runs the plain version for CPU tensors.
+    ``dt``/``dw`` may be column slices of the gathered doc-major rows
+    (unit last stride, uniform row stride)."""
     if dt.device.type == "cpu":
         return bm25_match_scores_plain(dt, dw, q_terms, q_valid)
     if dt.device.type != "cuda":
         raise ValueError(f"bm25_match_scores: unsupported device {dt.device}")
     q, pool, l = dt.shape
-    t = q_terms.shape[1]
     if dt.dtype != torch.int32 or dw.dtype != torch.float32:
         raise TypeError("bm25_match_scores: dt int32 and dw float32 needed")
-    if q_terms.dtype != torch.int32 or q_valid.dtype != torch.bool:
-        raise TypeError("bm25_match_scores: q_terms int32, q_valid bool")
-    if dw.shape != dt.shape or q_terms.shape != (q, t) \
-            or q_valid.shape != (q, t):
+    if dw.shape != dt.shape:
         raise ValueError("bm25_match_scores: shape mismatch")
+    q_terms, q_valid = _check_query("bm25_match_scores", q, q_terms, q_valid)
     for name, x in (("dt", dt), ("dw", dw)):
         if x.stride(2) != 1 or x.stride(0) != pool * x.stride(1):
             raise ValueError(f"bm25_match_scores: {name} needs unit last "
@@ -73,13 +142,12 @@ def bm25_match_scores(dt: torch.Tensor, dw: torch.Tensor,
     devs = {x.device for x in (dt, dw, q_terms, q_valid)}
     if len(devs) != 1:
         raise ValueError("bm25_match_scores: tensors on different devices")
-    q_terms = q_terms.contiguous()
-    q_valid = q_valid.contiguous()
     out = torch.empty((q, pool), dtype=torch.float32, device=dt.device)
     if q == 0 or pool == 0:
         return out
     launch("bm25_match_launch", dt.device, ptr(dt), dt.stride(1), ptr(dw),
-           dw.stride(1), q, pool, l, ptr(q_terms), ptr(q_valid), t, ptr(out))
+           dw.stride(1), None, 0, q, pool, l, ptr(q_terms), ptr(q_valid),
+           q_terms.shape[1], ptr(out))
     bm25_match_scores.launches += 1
     return out
 
@@ -171,15 +239,11 @@ def bm25_topk(
     """
     del approx
     n_docs = doc_packed.shape[0] - 1
-    l = doc_packed.shape[1] // 2
     cand = bm25_candidates(post_docs, post_weights, n_docs, q_rows, q_valid,
                            pool)
 
-    # stage 2: one gather of the packed doc-major rows, then the match
-    packed = doc_packed[cand.long()]  # (Q, pool, 2L) int32
-    dt = packed[..., :l]
-    dw = packed[..., l:].view(torch.float32)
-    scores = bm25_match_scores(dt, dw, q_terms, q_valid)  # (Q, pool)
+    # stage 2: the match reads each candidate's packed doc-major row
+    scores = bm25_match_rows(doc_packed, cand, q_terms, q_valid)  # (Q, pool)
 
     valid = cand < n_docs
     if filter_mask is not None:
