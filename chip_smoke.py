@@ -60,7 +60,35 @@
    of the path (the cascade's bf16 prefix-64 scan, the int8 scan, the
    match at the collection's pool; masked after the delete) is held
    against its plain version on the same inputs.
-7. Local generation (`[gen-*]`), TinyLlama-1.1B-Chat-v1.0 at its
+7. The serving read path over that collection, as `api/app.py` serves a
+   user: `[kg]` a `KGStore(KGConfig(), dim=768)` (the API's width) with
+   one page a document, 32 entities from a zipf vocabulary of 16,384
+   random two-word names (each mention its name's encoding at cosine
+   ~0.95) and 24 relationships from 256 encoded phrases, through
+   `upsert_unstructured_page` (pages/s, one prep launch a row, the prep
+   kernel bit-equal to plain at d 768, dims () and 1-32 rows, the first
+   page's launches held to plain in place), then `deduplicate` (pairs,
+   merges, seconds, peak memory); `[orch]` `SearchOrchestrator.execute`
+   on 64 queries (a noisy chunk plus 1-3 of its document's entity names,
+   a STUB router naming the vocabulary names in the prompt), one at a
+   time (p50/p90) and all at once, its hybrid hits equal to
+   `Collection.hybrid_search`, `traverse` on the card equal to
+   `k_hop_expand` on the CPU, >= 90% of queries with entities and a
+   path, every scan and match launch of a pass one at a time held to
+   plain at Q 1; `[batcher]` 2,048 concurrent requests through the API's
+   `MicroBatcher` (tokens wire, max_batch 256, 2 ms, two groups in
+   flight) beside 8 sequential batches of 256, each request equal to its
+   group run directly, every scan and match launch of a run held to
+   plain, the device's idle share over a profiled run, one run with one
+   group in flight beside one with two; `[hybrid]`
+   `HybridSearcher.search` on 256 queries (recall@10 against the exact
+   oracle over live rows, its BM25 match held to plain); `[checkpoint]`
+   `save_collection` / `save_kg` and both loaded on the card (tables
+   bit-equal, a tokens batch and the 64 orchestrator queries answered
+   the same, bit for bit, their launches held to plain), then a save
+   during which another thread deletes a document and inserts one, whose
+   snapshot must be the state at capture.
+8. Local generation (`[gen-*]`), TinyLlama-1.1B-Chat-v1.0 at its
    published widths with random bf16 weights from a seed, int8 weights
    and int8 KV cache, `attn_kernel=True`:
    `[gen-check]` the int8-KV decode-attention kernel against its plain
@@ -89,7 +117,7 @@ alone (its checks and its times), for kernel work on the scan.
 
     python3 chip_smoke.py --attn
 
-runs steps 1-2 and then `[gen-check]` and `[gen-time]` of step 7 alone,
+runs steps 1-2 and then `[gen-check]` and `[gen-time]` of step 8 alone,
 for kernel work on the decode attention.
 
     python3 chip_smoke.py --match-prep
@@ -97,6 +125,11 @@ for kernel work on the decode attention.
 runs steps 1-2, `[prep-check]` and `[prep-time]` of step 6, then the
 sparse table of step 3 and the BM25 match's checks and stage-2 times of
 step 4 alone, for kernel work on either kernel.
+
+    python3 chip_smoke.py --read-path
+
+runs steps 1-2, `[ingest]` and `[tokens]` of step 6 and step 7 alone,
+for work on the serving read path.
 """
 
 from __future__ import annotations
@@ -147,6 +180,18 @@ INGEST_DOCS, INGEST_CHUNKS = 4096, 64
 EMB_LEN, EMB_BATCH = 128, 64
 TOK_BATCHES, TOK_BATCH = 8, 256  # the API micro-batcher's default batch
 TOK_FLIP = 0.2        # share of a query's words resampled (bench.py)
+
+# the serving read path over the [ingest] collection: a KGStore at the
+# API's width (KGStore(KGConfig(), dim=min(embedder.dim, 2048)), as
+# api/app.py builds it beside each user's Collection), one page a
+# document; the orchestrator, the API's micro-batcher, the staged funnel
+# and checkpoints of both stores
+KG_NAMES, KG_ENTS, KG_RELS, KG_PHRASES = 16384, 32, 24, 256
+KG_COS = 0.95         # a mention's cosine to its name's vector
+ORCH_QUERIES = 64
+BATCHER_REQS, BATCHER_MAX = 2048, 256  # api/app.py: max_batch 256, 2 ms
+HYB_QUERIES = 256
+CKPT_DIR = "build/smoke_checkpoints"
 
 
 def log(msg: str) -> None:
@@ -285,9 +330,10 @@ def make_queries(dense, tokens, rng, seed):
     return q, texts
 
 
-def exact_top_ids(dense, q, k):
+def exact_top_ids(dense, q, k, live_only=False):
     """Brute-force exact top-k of bf16-rounded normalized queries over the
-    bf16 plane, in full f32 products."""
+    bf16 plane, in full f32 products; with ``live_only``, over the rows
+    not deleted."""
     import torch
 
     from rag_application_tpu_torch.ops.topk import stable_topk
@@ -299,6 +345,9 @@ def exact_top_ids(dense, q, k):
     with full_f32_matmul():
         for s in range(0, dense.size, 131072):
             sc = qb @ dense.vecs[s:s + 131072].float().T
+            if live_only:
+                sc = torch.where(dense.live[s:s + sc.shape[1]], sc,
+                                 float("-inf"))
             v, i = stable_topk(sc, k)
             i = i + s
             if best_v is not None:
@@ -639,17 +688,29 @@ def recording(module, name, counts=None):
         setattr(module, name, fn)
 
 
-def check_recorded(label, scans, matches):
+def routed(scans):
+    """Recorded scans with the kernel each took asked of `scan_route`
+    (where two threads launch at once, a launch count can rise under the
+    other thread's call)."""
+    from rag_application_tpu_torch.ops import fused_topk as ft
+
+    return [(a, kw, o, [ft.scan_route(a[0].dtype, a[1].dtype, a[0].shape[1],
+                                      a[0].stride(0), a[0].data_ptr(),
+                                      a[1].contiguous().data_ptr())])
+            for a, kw, o, _ in scans]
+
+
+def check_recorded(label, scans, matches, each=True):
     """Each recorded `scan_sheet` and `bm25_match_rows` launch of a path,
     against the plain version on the same inputs: int8 sheets bit-equal;
     f32 sheets within 2 d 2^-24 (each side within d 2^-24 of the exact
     dot of unit prefixes) with other ids only at near-ties; BM25
     bit-equal. Every int8 scan must have taken the int8 tensor-core
-    kernel and every bf16 scan the bf16 one. Returns (max abs err of the
-    int8 scans, of the bf16 scans, of the BM25 matches)."""
+    kernel and every bf16 scan the bf16 one. Logs a line a scan, or with
+    ``each`` False one line for all. Returns (max abs err of the int8
+    scans, of the bf16 scans, of the BM25 matches)."""
     import torch
 
-    from rag_application_tpu_torch.ops import bm25 as ob
     from rag_application_tpu_torch.ops import fused_topk as ft
 
     kinds = {args[0].dtype for args, _, _, _ in scans}
@@ -658,6 +719,7 @@ def check_recorded(label, scans, matches):
                              f"{len(matches)} bm25 matches")
     want = {torch.int8: "fused_scan_int8", torch.bfloat16: "fused_scan_bf16"}
     scan_err = dict.fromkeys(want, 0.0)
+    n_scans, n_mism = dict.fromkeys(want, 0), 0
     for (c, qs, iv, mask), kw, (kv, ki), took in scans:
         if took != [want[c.dtype]]:
             raise AssertionError(f"{label}: a {c.dtype} x {qs.dtype} scan "
@@ -677,19 +739,19 @@ def check_recorded(label, scans, matches):
                 f"block {kw['block_rows']} path {kw['mode']} "
                 f"inv_norms={iv is not None} mask={mask is not None}: "
                 f"max_abs_err {err:.3g} id_mismatches {mism}")
-        log("  " + line)
+        if each:
+            log("  " + line)
         if not ok:
             raise AssertionError(f"scan kernel != plain: {line}")
-    bm25_err = 0.0
-    for args, _, out, _ in matches:
-        plain = ob.bm25_match_rows_plain(*args)
-        bm25_err = max(bm25_err, (out - plain).abs().max().item())
-        line = (f"{label}: bm25 match rows {tuple(args[1].shape)} of "
-                f"{tuple(args[0].shape)}")
-        log(f"  {line}: bit-equal {torch.equal(out, plain)}")
-        if not torch.equal(out, plain):
-            raise AssertionError(f"bm25 match kernel != plain: {line}")
-    return scan_err[torch.int8], scan_err[torch.bfloat16], bm25_err
+        n_scans[c.dtype] += 1
+        n_mism += mism
+    if not each:
+        log(f"  {label}: {n_scans[torch.int8]} int8 scans bit-equal to plain, "
+            f"{n_scans[torch.bfloat16]} bf16 scans within 2 d 2^-24 (max abs "
+            f"err {scan_err[torch.bfloat16]:.3g}, {n_mism} ids other than "
+            f"plain's, each at a near-tie)")
+    return (scan_err[torch.int8], scan_err[torch.bfloat16],
+            check_matches(label, matches))
 
 
 def scan_bound(rows, queries, d, block):
@@ -1574,6 +1636,746 @@ def run_tokens(col, emb, tokens):
     return times, recall, ties, launches, tuple(map(max, zip(*errs)))
 
 
+def check_matches(label, matches):
+    """Each recorded `bm25_match_rows` launch against the plain version
+    on the same inputs, bit for bit. Returns the max abs error."""
+    import torch
+
+    from rag_application_tpu_torch.ops import bm25 as ob
+
+    worst = 0.0
+    for args, _, out, _ in matches:
+        plain = ob.bm25_match_rows_plain(*args)
+        worst = max(worst, (out - plain).abs().max().item())
+        if not torch.equal(out, plain):
+            raise AssertionError(f"bm25 match kernel != plain: {label}, rows "
+                                 f"{tuple(args[1].shape)}")
+    log(f"  {label}: {len(matches)} bm25 match launches bit-equal to plain")
+    return worst
+
+
+def check_kg_prep(dev):
+    """The prep kernel against its plain version at the KG's shape (d 768,
+    no matryoshka dims, 1-32 rows an insert): into new tensors, and in
+    place into a KG space's planes between guard rows. Returns the worst
+    max abs error of the bf16 plane."""
+    import torch
+
+    from rag_application_tpu_torch.ops import quant as oq
+
+    worst, cap = 0.0, 1024
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for i, n in enumerate((1, 2, 5, 17, 32)):
+        x = prep_inputs(dev, n, DIM, 90 + i, special=n > 2)
+        kern = oq.prepare_vectors(x, ())
+        plain = oq.prepare_vectors_plain(x, ())
+        planes = [
+            torch.randint(-2**15, 2**15, (cap, DIM), generator=gen,
+                          device=dev, dtype=torch.int16).view(torch.bfloat16),
+            torch.randint(-128, 128, (cap, DIM), generator=gen, device=dev,
+                          dtype=torch.int8),
+            torch.zeros((cap, 0), device=dev),
+            torch.zeros((cap,), dtype=torch.bool, device=dev)]
+        before = [p.clone() for p in planes]
+        start = 500 + 7 * i
+        oq.prepare_vectors_into(x, (), *planes, start)
+        torch.cuda.synchronize()
+        end = start + n
+        fresh = [torch.equal(a.view(torch.int16), b.view(torch.int16))
+                 if a.dtype == torch.bfloat16 else torch.equal(a, b)
+                 for a, b in zip(kern, plain)]
+        rows = [torch.equal(planes[0][start:end].view(torch.int16),
+                            plain[0].view(torch.int16)),
+                torch.equal(planes[1][start:end], plain[1]),
+                bool(planes[3][start:end].all().item())]
+        guards = all(torch.equal(p[:start].view(torch.uint8),
+                                 b[:start].view(torch.uint8))
+                     and torch.equal(p[end:].view(torch.uint8),
+                                     b[end:].view(torch.uint8))
+                     for p, b in zip(planes, before) if p.shape[1:] != (0,))
+        err = (kern[0].float() - plain[0].float()).abs().max().item()
+        worst = max(worst, err)
+        log(f"  prep {n} x {DIM}, dims (): new tensors bit-equal {fresh}; in "
+            f"place at row {start}: vecs / int8 / live {rows}, guard rows "
+            f"untouched {guards}")
+        if not (all(fresh) and all(rows) and guards):
+            raise AssertionError(f"prep kernel != plain at the KG shape, "
+                                 f"{n} rows")
+    return worst
+
+
+def kg_vocab(rng):
+    """KG_NAMES entity names (two words of 4-8 random letters), a type
+    each, and KG_PHRASES relation phrases."""
+    from rag_application_tpu_torch.kg.extract import ENTITY_TYPES
+
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+
+    def word():
+        return "".join(rng.choice(letters, int(rng.integers(4, 9))))
+
+    names, seen = [], set()
+    while len(names) < KG_NAMES:
+        name = f"{word()} {word()}"
+        if name not in seen:
+            seen.add(name)
+            names.append(name)
+    types = [ENTITY_TYPES[i] for i in rng.integers(0, len(ENTITY_TYPES),
+                                                   KG_NAMES)]
+    phrases = [f"{word()} {word()} {word()}" for _ in range(KG_PHRASES)]
+    return names, types, phrases
+
+
+def near(rng, base):
+    """Unit rows at cosine ~KG_COS to the unit rows of ``base``."""
+    sigma = np.sqrt(1.0 / KG_COS ** 2 - 1.0) / np.sqrt(base.shape[1])
+    v = base + sigma * rng.standard_normal(base.shape).astype(np.float32)
+    return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+def run_kg(col, emb, texts, dev):
+    """[kg]: one page a document written through
+    `KGStore.upsert_unstructured_page` (KG_ENTS entities from a zipf
+    vocabulary of KG_NAMES names, each mention its name's encoding at
+    cosine ~KG_COS; KG_RELS relationships from KG_PHRASES encoded
+    phrases), then `deduplicate` once. Returns (kg, names, the names of
+    each document's page, the prep kernel's worst error)."""
+    import torch
+
+    from rag_application_tpu_torch.config import KGConfig
+    from rag_application_tpu_torch.index import dense as idense
+    from rag_application_tpu_torch.kg import dedup as dd
+    from rag_application_tpu_torch.kg.extract import RELATION_TYPES, slugify
+    from rag_application_tpu_torch.kg.store import KGStore, Space
+    from rag_application_tpu_torch.ops import quant as oq
+
+    prep_err = check_kg_prep(dev)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(17)
+    names, types, phrases = kg_vocab(rng)
+    name_vecs = emb.encode(names)
+    phrase_vecs = emb.encode(phrases)
+    zipf = 1.0 / np.arange(1, KG_NAMES + 1)
+    zipf /= zipf.sum()
+    # a page's embedding: the mean of its document's chunk rows
+    vecs = col.dense.vecs
+    page_vecs = torch.cat([
+        vecs[s * INGEST_CHUNKS:(s + 512) * INGEST_CHUNKS].view(
+            -1, INGEST_CHUNKS, DIM).float().mean(1)
+        for s in range(0, INGEST_DOCS, 512)]).cpu().numpy()
+    kg = KGStore(KGConfig(), dim=min(emb.dim, 2048), device=dev)
+    log(f"  set-up {time.perf_counter() - t0:.1f} s: {KG_NAMES} names and "
+        f"{KG_PHRASES} relation phrases encoded; KGStore(KGConfig(), dim "
+        f"{kg.dim}), max_degree {kg.cfg.max_degree}, max_hops "
+        f"{kg.cfg.max_hops}")
+
+    def page(i):
+        idx = rng.choice(KG_NAMES, KG_ENTS, replace=False, p=zipf)
+        ents = [{"id": slugify(names[j]), "text": names[j],
+                 "entity_type": types[j],
+                 "entity_profile": f"{names[j]} profile"} for j in idx]
+        rels, keys, ph = [], set(), []
+        while len(rels) < KG_RELS:
+            a, b = rng.choice(KG_ENTS, 2, replace=False)
+            t = int(rng.integers(len(RELATION_TYPES)))
+            if (a, b, t) in keys:
+                continue
+            keys.add((a, b, t))
+            ph.append(int(rng.integers(KG_PHRASES)))
+            rels.append({"source": ents[a]["id"], "target": ents[b]["id"],
+                         "relation_type": RELATION_TYPES[t],
+                         "relationship_profile": phrases[ph[-1]]})
+        rel_vecs = near(rng, phrase_vecs[ph])
+        return [names[j] for j in idx], dict(
+            content=texts[i * INGEST_CHUNKS], embedding=page_vecs[i],
+            entities=ents, relationships=rels,
+            entity_embeddings=near(rng, name_vecs[idx]),
+            relationship_embeddings=rel_vecs)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    oq.prepare_vectors_into.launches = 0
+    page_names, upsert_s = [], 0.0
+    for i in range(INGEST_DOCS):
+        ents, kw = page(i)
+        page_names.append(ents)
+        t0 = time.perf_counter()
+        if i == 0:  # the first page's launches, held against plain
+            with recording(idense, "prepare_vectors_into") as preps:
+                kg.upsert_unstructured_page(f"doc-{i}", 1, **kw)
+        else:
+            kg.upsert_unstructured_page(f"doc-{i}", 1, **kw)
+        upsert_s += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = oq.prepare_vectors_into.launches
+    stats = kg.stats()
+    want = INGEST_DOCS * (1 + KG_ENTS + KG_RELS)
+    log(f"  {INGEST_DOCS} pages upserted in {upsert_s:.2f} s -> "
+        f"{INGEST_DOCS / upsert_s:,.1f} pages/s ({want / upsert_s:,.0f} rows"
+        f"/s); stats {stats}; prepare_vectors_into launches {launches} (one "
+        f"a row: {want}); device memory {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB (the KG {(torch.cuda.memory_allocated() - base) / 2**30:.2f}"
+        f" GiB)")
+    if launches != want or stats["entity"] != INGEST_DOCS * KG_ENTS \
+            or stats["relationship"] != INGEST_DOCS * KG_RELS:
+        raise AssertionError(f"[kg] launches {launches}, stats {stats}")
+    for args, _, _, _ in preps:
+        x, dims, pv, pi, _, pl, start = args
+        plain = oq.prepare_vectors_plain(x, dims)
+        end = start + x.shape[0]
+        if dims or not (torch.equal(pv[start:end].view(torch.int16),
+                                    plain[0].view(torch.int16))
+                        and torch.equal(pi[start:end], plain[1])
+                        and bool(pl[start:end].all().item())):
+            raise AssertionError(f"[kg] a page's prep launch at row {start} "
+                                 f"!= plain")
+    log(f"  the first page's {len(preps)} prep launches (1 row each, dims "
+        f"()) bit-equal to plain in the KG's planes")
+
+    # dedup: the self-kNN over every entity row, then the merges
+    found = {}
+    real_find = dd.find_duplicates
+
+    def find(*a, **k):
+        t0 = time.perf_counter()
+        pairs = real_find(*a, **k)
+        found["s"] = time.perf_counter() - t0
+        table = kg.spaces[Space.ENTITY]
+        found["pairs"] = len(pairs)
+        found["same"] = sum(table.get(x)["text"] == table.get(y)["text"]
+                            for x, y, _ in pairs)
+        return pairs
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dd.find_duplicates = find
+    try:
+        t0 = time.perf_counter()
+        merged = dd.deduplicate(kg)
+        torch.cuda.synchronize()
+        dedup_s = time.perf_counter() - t0
+    finally:
+        dd.find_duplicates = real_find
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    after = kg.stats()
+    log(f"  deduplicate: {found['pairs']:,} pairs found ({found['same']:,} "
+        f"of the same name) in {found['s']:.2f} s, {merged:,} merges; "
+        f"{dedup_s:.2f} s in all; peak device memory above the tables "
+        f"{peak:.2f} GiB; entity rows live {stats['entity']:,} -> "
+        f"{after['entity']:,}")
+    if not merged or after["entity"] != stats["entity"] - merged \
+            or found["same"] != found["pairs"]:
+        raise AssertionError(f"[kg] dedup: {found}, merged {merged}, stats "
+                             f"{after}")
+    return kg, names, page_names, prep_err
+
+
+def orch_queries(tokens, page_names):
+    """ORCH_QUERIES queries: a stored chunk with TOK_FLIP of its words
+    resampled, plus 1-3 entity names of its document's page."""
+    rng = np.random.default_rng(51)
+    docs = rng.choice(INGEST_DOCS, ORCH_QUERIES, replace=False)
+    out = []
+    for i, d in enumerate(docs):
+        row = int(d) * INGEST_CHUNKS + int(rng.integers(INGEST_CHUNKS))
+        names = rng.choice(page_names[d], int(rng.integers(1, 4)),
+                           replace=False)
+        out.append(noisy_texts(tokens, [row], 900 + i)[0] + " "
+                   + " ".join(names))
+    return out
+
+
+def stub_router(names):
+    """A STUB router whose "Extract the entities" answer is the
+    vocabulary names found in the prompt."""
+    import re
+
+    from rag_application_tpu_torch.llm.router import LLMRouter, Provider
+
+    known = set(names)
+
+    def entities(prompt):
+        words = re.findall(r"[a-z]+", prompt.split("mentioned in:", 1)[-1])
+        found = []
+        for a, b in zip(words, words[1:]):
+            if f"{a} {b}" in known and f"{a} {b}" not in found:
+                found.append(f"{a} {b}")
+        return json.dumps({"entities": found, "relations": []})
+
+    llm = LLMRouter(Provider.STUB)
+    llm.stub.on(r"Extract the entities", entities)
+    return llm
+
+
+def hit_rows(hits):
+    return [(h.row, h.score) for h in hits]
+
+
+def run_orch(col, emb, kg, names, queries):
+    """[orch]: `SearchOrchestrator.execute` on each query, one at a time
+    and all at once, then one at a time again with every scan and match
+    launch recorded and held against plain. Returns (the results of the
+    queries one at a time, the recorded launches' max abs errors as
+    `check_recorded` gives them)."""
+    import asyncio
+
+    import torch
+
+    from rag_application_tpu_torch.ops import bm25 as ob
+    from rag_application_tpu_torch.ops import fused_topk as ft
+    from rag_application_tpu_torch.ops.graph_hop import k_hop_expand
+    from rag_application_tpu_torch.search.orchestration import \
+        SearchOrchestrator
+
+    orch = SearchOrchestrator(col, kg, emb, stub_router(names))
+    t0 = time.perf_counter()
+    asyncio.run(orch.execute(queries[0], limit=K))  # builds the adjacency
+    log(f"  warm-up execute (the adjacency built) {time.perf_counter() - t0:.2f}"
+        f" s")
+
+    async def one_at_a_time():
+        out = []
+        for q in queries:
+            t0 = time.perf_counter()
+            res = await orch.execute(q, limit=K)
+            out.append((res, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    async def all_at_once():
+        return await asyncio.gather(*(orch.execute(q, limit=K)
+                                      for q in queries))
+
+    reset_scan_counts(ft)
+    ob.bm25_match_rows.launches = 0
+    seq = asyncio.run(one_at_a_time())
+    launches = {**scan_counts(ft), "bm25_match": ob.bm25_match_rows.launches}
+    t0 = time.perf_counter()
+    together = asyncio.run(all_at_once())
+    wall = time.perf_counter() - t0
+    ms = np.array([m for _, m in seq])
+    log(f"  {len(queries)} queries one at a time: p50 {np.percentile(ms, 50):.1f}"
+        f" ms, p90 {np.percentile(ms, 90):.1f} ms (host clock, each ending "
+        f"in its results on the host); all at once (asyncio.gather) "
+        f"{wall * 1e3:.1f} ms -> {len(queries) / wall:.1f} queries/s; "
+        f"launches one at a time {launches} "
+        f"({sum(launches.values()) / len(queries):.2f} a query)")
+    if ft.route_launches["fused_scan"] or not all(launches.values()):
+        raise AssertionError(f"[orch] launches {launches}, by kernel "
+                             f"{ft.route_launches}")
+
+    # every scan and match launch of one more pass one at a time, against
+    # plain at the orchestrator's shapes (Q 1); a query's two branches run
+    # in two threads, so each scan's kernel is asked of scan_route
+    with recording(ft, "scan_sheet") as scans, \
+            recording(ob, "bm25_match_rows") as matches:
+        again = asyncio.run(one_at_a_time())
+    errs = check_recorded("orch", routed(scans), matches, each=False)
+
+    results = [r for r, _ in seq]
+    with_graph = 0
+    for i, (q, res) in enumerate(zip(queries, results)):
+        g = res["graph"]
+        with_graph += bool(g["entities"]) and any(g["paths"])
+        q_vec = emb.encode([q])[0]
+        direct = col.hybrid_search(q_vec, q, limit=K)
+        if hit_rows(res["hits"]) != hit_rows(direct) or not direct:
+            raise AssertionError(f"[orch] query {i}: hybrid hits differ from "
+                                 f"Collection.hybrid_search")
+        if any(hit_rows(r[i]["hits"]) != hit_rows(res["hits"])
+               or r[i]["context"] != res["context"]
+               for r in (together, [a for a, _ in again])):
+            raise AssertionError(f"[orch] query {i}: run concurrently or "
+                                 f"again, the result differs")
+    share = with_graph / len(queries)
+    # the traversal on the card against the port's own k_hop_expand on
+    # CPU tensors, for the same adjacency, seeds and beam scores
+    traversed = 0
+    adj, n = kg.entity_adjacency()
+    for q, res in zip(queries[:16], results):
+        g = res["graph"]
+        p = g["params"]
+        seeds = [h["row"] for h in g["entities"][:p.max_paths]]
+        if not seeds:
+            continue
+        kgq = emb.encode([q])[0][:kg.dim]
+        sc = kg._beam_scores(kgq, n)
+        s = torch.tensor([[r] for r in seeds], dtype=torch.int32,
+                         device=adj.device)
+        hops = min(p.search_depth, kg.cfg.max_hops)
+        vd, hd = k_hop_expand(adj, s, hops, frontier_cap=p.expansion_factor,
+                              scores=sc)
+        vc, hc = k_hop_expand(adj.cpu(), s.cpu(), hops,
+                              frontier_cap=p.expansion_factor,
+                              scores=sc.cpu())
+        if not (torch.equal(vd.cpu(), vc) and torch.equal(hd.cpu(), hc)):
+            raise AssertionError("[orch] k_hop_expand on the card != on the "
+                                 "CPU")
+        if kg.traverse(seeds, p.search_depth, query_embedding=kgq,
+                       frontier_cap=p.expansion_factor) != g["paths"]:
+            raise AssertionError("[orch] traverse != the orchestrator's paths")
+        traversed += 1
+    log(f"  hybrid hits == Collection.hybrid_search on all {len(queries)}; "
+        f"concurrent and repeated results == sequential; {with_graph} of {len(queries)} "
+        f"({share:.0%}) with entities and a path; traverse on the card == "
+        f"k_hop_expand on the CPU for {traversed} queries (ids and hops "
+        f"exact)")
+    if share < 0.9 or not traversed:
+        raise AssertionError(f"[orch] {share:.0%} of queries with a graph")
+    return results, errs
+
+
+def run_batcher(col, emb, tokens):
+    """[batcher]: BATCHER_REQS concurrent `search(None, text, K)` calls
+    through a `MicroBatcher` built as api/app.py builds it (the tokens
+    wire, max_batch 256, 2 ms, two groups in flight). Returns the max
+    abs errors of the recorded scans and matches against plain."""
+    import asyncio
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rag_application_tpu_torch.ops import bm25 as ob
+    from rag_application_tpu_torch.ops import fused_topk as ft
+    from rag_application_tpu_torch.search.batcher import MicroBatcher
+
+    rng = np.random.default_rng(61)
+    texts = noisy_texts(tokens, rng.integers(0, col.dense.size, BATCHER_REQS),
+                        700)
+    groups = []
+
+    def run(embs, batch, limit):
+        if embs is not None:
+            raise AssertionError("the tokens wire takes texts only")
+        groups.append(list(batch))
+        return col.hybrid_search_text_batch(batch, limit)
+
+    def drive(inflight=2):
+        b = MicroBatcher(run, max_batch=BATCHER_MAX, max_wait_ms=2.0,
+                         max_inflight=inflight)
+
+        async def go():
+            return await asyncio.gather(*(b.search(None, t, K)
+                                          for t in texts))
+        t0 = time.perf_counter()
+        out = asyncio.run(go())
+        return b, out, time.perf_counter() - t0
+
+    drive()  # warm-up
+    groups.clear()
+    reset_scan_counts(ft)
+    ob.bm25_match_rows.launches = 0
+    b, out, wall = drive()
+    launches = {**scan_counts(ft), "bm25_match": ob.bm25_match_rows.launches}
+    sizes = [len(g) for g in groups]
+    t0 = time.perf_counter()
+    seq = []
+    for s in range(0, BATCHER_REQS, BATCHER_MAX):
+        seq += col.hybrid_search_text_batch(texts[s:s + BATCHER_MAX], K)
+    seq_wall = time.perf_counter() - t0
+    log(f"  MicroBatcher: {BATCHER_REQS} requests in {wall * 1e3:.1f} ms -> "
+        f"{BATCHER_REQS / wall:,.0f} requests/s; {b.batches_run} batches "
+        f"formed (sizes after padding {sizes}); the same requests as "
+        f"{BATCHER_REQS // BATCHER_MAX} sequential batches of {BATCHER_MAX}: "
+        f"{seq_wall * 1e3:.1f} ms -> {BATCHER_REQS / seq_wall:,.0f} "
+        f"requests/s (host clock); launches {launches}")
+    if b.requests_served != BATCHER_REQS or ft.route_launches["fused_scan"] \
+            or not all(launches.values()):
+        raise AssertionError(f"[batcher] served {b.requests_served}, "
+                             f"launches {ft.route_launches}")
+
+    # each request's rows and scores == its group run directly
+    want = {}
+    for g in groups:
+        for t, hits in zip(g, col.hybrid_search_text_batch(g, K)):
+            want.setdefault(t, []).append(hit_rows(hits))
+    bad = sum(hit_rows(h) not in want[t] for t, h in zip(texts, out))
+    # against the 8 sequential batches: other rows only at near-ties
+    # (a group encodes its texts at another batch shape)
+    q_of = {}
+    for g in groups + [texts[s:s + BATCHER_MAX]
+                       for s in range(0, BATCHER_REQS, BATCHER_MAX)]:
+        ids, am = emb.tokenizer.encode_batch(g, emb.max_len)
+        q = emb.state.model.apply(emb.state.params,
+                                  torch.from_numpy(ids).to(col.device),
+                                  torch.from_numpy(am).to(col.device))
+        for t, row in zip(g, q):
+            q_of.setdefault(t, []).append(row)
+    ties, worst = 0, 0.0
+    for t, a, c in zip(texts, out, seq):
+        ra, rc = [h.row for h in a], [h.row for h in c]
+        if ra == rc:
+            continue
+        qs = q_of[t]
+        dq = max(torch.linalg.vector_norm(x - qs[-1]).item() for x in qs)
+        sa = exact_scores(col.dense, qs[-1][None], [ra])[0]
+        sc = exact_scores(col.dense, qs[-1][None], [rc])[0]
+        gap = (sa - sc).abs().max().item()
+        if len(ra) != len(rc) or gap > 2.01 * dq + 1e-5:
+            raise AssertionError(f"[batcher] rows differ beyond a near-tie: "
+                                 f"gap {gap:.3g}, |dq| {dq:.3g}")
+        ties += 1
+        worst = max(worst, gap)
+    log(f"  results == hybrid_search_text_batch of the same groups for "
+        f"{BATCHER_REQS - bad} of {BATCHER_REQS}; against the sequential "
+        f"batches {ties} near-ties (worst positional score gap {worst:.3g})")
+    if bad:
+        raise AssertionError(f"[batcher] {bad} requests differ from their "
+                             f"group run directly")
+
+    # every scan and match launch of one more run, against plain (two
+    # groups in flight: each scan's kernel is asked of scan_route)
+    with recording(ft, "scan_sheet") as scans, \
+            recording(ob, "bm25_match_rows") as matches:
+        drive()
+    errs = check_recorded("batcher", routed(scans), matches)
+    log(f"  batcher: {len(scans)} scan and {len(matches)} match launches "
+        f"held against plain")
+
+    # the device's idle share over one profiled run
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, pwall = drive()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    log(f"[profile] one MicroBatcher run of {BATCHER_REQS} requests: "
+        f"{pwall * 1e3:.1f} ms wall (host clock, profiled); device busy "
+        f"{busy:.1f} ms ({busy / (pwall * 1e3):.1%}), idle "
+        f"{1 - busy / (pwall * 1e3):.1%}")
+
+    # one group in flight against two (api/app.py's), one run each
+    one = drive(1)[2]
+    two = drive(2)[2]
+    log(f"  max_inflight 1: {one * 1e3:.1f} ms ({BATCHER_REQS / one:,.0f} "
+        f"requests/s); max_inflight 2: {two * 1e3:.1f} ms "
+        f"({BATCHER_REQS / two:,.0f} requests/s) (host clock)")
+    return errs
+
+
+def run_hybrid(col, emb, tokens):
+    """[hybrid]: `HybridSearcher.search` (the staged funnel) on
+    HYB_QUERIES queries over the collection's dense and sparse tables.
+    Returns the max abs error of its matches against plain."""
+    import torch
+
+    from rag_application_tpu_torch.ops import bm25 as ob
+    from rag_application_tpu_torch.search.hybrid import HybridSearcher
+
+    rng = np.random.default_rng(71)
+    texts = noisy_texts(tokens, rng.integers(0, col.dense.size, HYB_QUERIES),
+                        800)
+    q = emb.encode(texts)
+    hs = HybridSearcher(col.dense, col.sparse, col._funnel(None, True))
+    hs.search(q[:8], texts[:8], K)
+    ob.bm25_match_rows.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = hs.search(q, texts, K)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = ob.bm25_match_rows.launches
+    exact = exact_top_ids(col.dense, torch.from_numpy(q).to(col.device), K,
+                          live_only=True)
+    recall = float(np.mean([np.isin(exact[r], res.rows[r]).mean()
+                            for r in range(HYB_QUERIES)]))
+    log(f"  HybridSearcher.search, {HYB_QUERIES} queries: {ms:.1f} ms (host "
+        f"clock, results on the host); recall@10 vs exact over the live "
+        f"rows {recall:.4f}; bm25_match_rows launches {launches}")
+    with recording(ob, "bm25_match_rows") as matches:
+        again = hs.search(q, texts, K)
+    if not np.array_equal(again.rows, res.rows):
+        raise AssertionError("[hybrid] a second search differs")
+    err = check_matches("hybrid", matches)
+    if launches != 1 or recall < 0.95:
+        raise AssertionError(f"[hybrid] launches {launches}, recall "
+                             f"{recall:.4f}")
+    return err
+
+
+def dir_bytes(path):
+    import os
+
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+class CaptureHook:
+    """Stands in for a store's lock: runs ``after`` once, right after the
+    first release that follows its setting (the moment a save has
+    captured its references and has not copied them yet)."""
+
+    def __init__(self, lock):
+        self.lock = lock
+        self.after = None
+
+    def __enter__(self):
+        return self.lock.__enter__()
+
+    def __exit__(self, *exc):
+        out = self.lock.__exit__(*exc)
+        fn, self.after = self.after, None
+        if fn is not None:
+            fn()
+        return out
+
+
+def same_dense(a, b):
+    """Two dense indexes hold the same size and planes, bit for bit."""
+    import torch
+
+    def eq(x, y):
+        if x is None or y is None:
+            return x is y
+        if x.dtype == torch.bfloat16:
+            x, y = x.view(torch.int16), y.view(torch.int16)
+        return torch.equal(x, y)
+
+    return a.size == b.size and all(
+        eq(getattr(a, n), getattr(b, n))
+        for n in ("vecs", "int8", "inv_norms", "live"))
+
+
+def run_checkpoint(col, kg, emb, names, queries, results, tok_texts, dev):
+    """[checkpoint]: `save_collection` and `save_kg`, then both loaded on
+    the card: the tables equal, one tokens-wire batch and the orchestrator
+    queries answered the same, their scan and match launches held against
+    plain; then a save during which another thread deletes a document and
+    inserts one, whose snapshot must be the state at capture. Returns the
+    recorded launches' max abs errors as `check_recorded` gives them."""
+    import asyncio
+    import os
+    import shutil
+    import threading
+
+    import torch
+
+    from rag_application_tpu_torch.config import Config, KGConfig
+    from rag_application_tpu_torch.index.checkpoint import (load_collection,
+                                                            save_collection)
+    from rag_application_tpu_torch.kg.checkpoint import load_kg, save_kg
+    from rag_application_tpu_torch.kg.store import Space
+    from rag_application_tpu_torch.ops import bm25 as ob
+    from rag_application_tpu_torch.ops import fused_topk as ft
+    from rag_application_tpu_torch.search.orchestration import \
+        SearchOrchestrator
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), CKPT_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cpath, kpath = os.path.join(root, "collection"), os.path.join(root, "kg")
+    t0 = time.perf_counter()
+    save_collection(col, cpath)
+    t1 = time.perf_counter()
+    save_kg(kg, kpath)
+    t2 = time.perf_counter()
+    col2 = load_collection(cpath, Config(), device=dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    kg2 = load_kg(kpath, KGConfig(), device=dev)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    log(f"  save_collection {t1 - t0:.2f} s, {dir_bytes(cpath) / 1e6:,.1f} MB"
+        f" on disk; save_kg {t2 - t1:.2f} s, {dir_bytes(kpath) / 1e6:,.1f} "
+        f"MB; load_collection {t3 - t2:.2f} s, load_kg {t4 - t3:.2f} s (on "
+        f"the card)")
+    sp, sp2 = col.sparse, col2.sparse
+    if not (same_dense(col.dense, col2.dense)
+            and all(np.array_equal(x, y) for x, y in zip(sp._flat(),
+                                                         sp2._flat()))
+            and sp._deleted == sp2._deleted
+            and col.payloads._payloads == col2.payloads._payloads
+            and all(same_dense(kg.spaces[s].index, kg2.spaces[s].index)
+                    and kg.spaces[s].by_key == kg2.spaces[s].by_key
+                    for s in Space)
+            and kg.entity_edges == kg2.entity_edges
+            and kg.stats() == kg2.stats()):
+        raise AssertionError("[checkpoint] restored tables differ")
+
+    col2.bind_query_encoder(emb)
+    orch = SearchOrchestrator(col2, kg2, emb, stub_router(names))
+
+    async def answer():
+        return [await orch.execute(q, limit=K) for q in queries]
+
+    # the restored stores' scan and match launches, held against plain
+    with recording(ft, "scan_sheet") as scans, \
+            recording(ob, "bm25_match_rows") as matches:
+        t0 = time.perf_counter()
+        b = col2.hybrid_search_text_batch(tok_texts, K)
+        first = time.perf_counter() - t0
+        answers = asyncio.run(answer())
+    errs = check_recorded("restored", routed(scans), matches, each=False)
+    a = col.hybrid_search_text_batch(tok_texts, K)
+    if [hit_rows(h) for h in a] != [hit_rows(h) for h in b]:
+        raise AssertionError("[checkpoint] a tokens batch differs after the "
+                             "restore")
+    for i, (x, y) in enumerate(zip(results, answers)):
+        if hit_rows(x["hits"]) != hit_rows(y["hits"]) \
+                or x["context"] != y["context"]:
+            raise AssertionError(f"[checkpoint] orchestrator query {i} "
+                                 f"differs after the restore")
+    log(f"  restored: tables bit-equal; a tokens batch of {len(tok_texts)} "
+        f"(the first search rebuilding BM25's device tables: "
+        f"{first * 1e3:.0f} ms) and the {len(queries)} orchestrator queries "
+        f"give the same rows, bit-equal scores and the same contexts")
+    del col2, kg2, orch, scans, matches
+
+    # a save while another thread deletes a document and inserts one
+    chunks = [{"text": tok_texts[i % len(tok_texts)], "page": -1}
+              for i in range(INGEST_CHUNKS)]
+    vecs = emb.encode([c["text"] for c in chunks])
+    victim = "doc-7"
+    at = {}
+
+    def write():
+        col.delete_document(victim)
+        col.store_document_vectors("doc-extra", chunks, vecs)
+
+    def during():  # the save has captured; copy nothing yet
+        d = col.dense
+        at.update(size=d.size, vecs=d.vecs, int8=d.int8, live=d.live,
+                  live_copy=d.live.clone(), n_payloads=len(col.payloads))
+        w = threading.Thread(target=write)
+        w.start()
+        w.join(timeout=120)
+        at["writer_done"] = not w.is_alive()
+
+    lock = col.lock
+    col.lock = CaptureHook(lock)
+    col.lock.after = during
+    spath = os.path.join(root, "during")
+    try:
+        save_collection(col, spath)
+    finally:
+        col.lock = lock
+    snap = load_collection(spath, Config(), device=dev)
+    d = col.dense
+    ok = (at["writer_done"] and snap.dense.size == at["size"]
+          and torch.equal(snap.dense.live, at["live_copy"])
+          and torch.equal(at["live"], at["live_copy"])
+          and torch.equal(snap.dense.vecs.view(torch.int16),
+                          at["vecs"].view(torch.int16))
+          and torch.equal(snap.dense.int8, at["int8"])
+          and len(snap.payloads) == at["n_payloads"]
+          and len(snap.payloads.rows_where(document_id=victim)) == INGEST_CHUNKS
+          and not snap.payloads.rows_where(document_id="doc-extra")
+          and not col.payloads.rows_where(document_id=victim)
+          and len(col.payloads.rows_where(document_id="doc-extra"))
+          == INGEST_CHUNKS and d.size == at["size"] + INGEST_CHUNKS
+          and d.live.data_ptr() != at["live"].data_ptr())
+    log(f"  a save with a delete and an insert in another thread between "
+        f"its capture and its copies: snapshot size {snap.dense.size:,}, "
+        f"live flags, rows and payloads == the state at capture {ok}; the "
+        f"collection after: size {d.size:,}, {victim!r} deleted, "
+        f"'doc-extra' stored")
+    del snap
+    shutil.rmtree(root)
+    if not ok:
+        raise AssertionError("[checkpoint] the snapshot taken during writes "
+                             "is not the state at capture")
+    return errs
+
 
 def bf16_ulp(x: float) -> float:
     """One bf16 ulp at magnitude x (8 significant bits)."""
@@ -1948,6 +2750,51 @@ def run_local_llm(params, cfg, dev):
     return da.decode_attend_int8.launches
 
 
+def run_read_path(col, emb, ing_tokens, ing_texts, dev, card):
+    """[kg], [orch], [batcher], [hybrid] and [checkpoint] over the
+    [ingest] collection. Returns ((int8 scan, bf16 scan, bm25) max abs
+    errors of the recorded launches, the prep kernel's at the KG shape).
+    """
+    t0 = time.perf_counter()
+    log(f"[kg] KGStore at the API's width, one page of {KG_ENTS} entities "
+        f"and {KG_RELS} relationships a document, then deduplicate ({card})")
+    kg, names, page_names, prep_err_kg = run_kg(col, emb, ing_texts, dev)
+    log(f"[kg] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log(f"[orch] SearchOrchestrator.execute, {ORCH_QUERIES} queries, STUB "
+        f"router ({card})")
+    queries = orch_queries(ing_tokens, page_names)
+    orch_results, orch_errs = run_orch(col, emb, kg, names, queries)
+    log(f"[orch] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log(f"[batcher] MicroBatcher over the tokens wire, {BATCHER_REQS} "
+        f"concurrent requests ({card})")
+    errs = list(map(max, zip(orch_errs,
+                             run_batcher(col, emb, ing_tokens))))
+    log(f"[batcher] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log(f"[hybrid] HybridSearcher.search, {HYB_QUERIES} queries ({card})")
+    errs[2] = max(errs[2], run_hybrid(col, emb, ing_tokens))
+    log(f"[hybrid] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log(f"[checkpoint] save and load the collection and the KG ({card})")
+    tok_texts = noisy_texts(ing_tokens,
+                            np.arange(TOK_BATCH) * 97 % len(ing_tokens), 950)
+    errs = list(map(max, zip(errs, run_checkpoint(
+        col, kg, emb, names, queries, orch_results, tok_texts, dev))))
+    log(f"[checkpoint] {time.perf_counter() - t0:.1f} s")
+    return tuple(errs), prep_err_kg
+
+
+def read_path_only(dev, card) -> int:
+    """`--read-path`: [ingest], [tokens] and the read-path phases alone."""
+    col, emb, ing_tokens, ing_texts, _ = run_ingest(dev)
+    run_tokens(col, emb, ing_tokens)
+    run_read_path(col, emb, ing_tokens, ing_texts, dev, card)
+    log(card)
+    return 0
+
+
 def attn_only(dev, card) -> int:
     """`--attn`: the decode-attention kernel's checks and times alone, for
     kernel work on it (no tables, search, write path or generation)."""
@@ -2033,6 +2880,8 @@ def main() -> int:
         return attn_only(dev, card)
     if sys.argv[1:] == ["--match-prep"]:
         return match_prep_only(dev, card)
+    if sys.argv[1:] == ["--read-path"]:
+        return read_path_only(dev, card)
 
     from rag_application_tpu_torch.ops import quant as oq
 
@@ -2090,7 +2939,7 @@ def main() -> int:
     log(f"[ingest] Collection.store_document_vectors(Embedder.encode(...)), "
         f"Config() + EncoderConfig() defaults, {INGEST_DOCS} documents x "
         f"{INGEST_CHUNKS} chunks ({card})")
-    col, emb, ing_tokens, _, prep_launches = run_ingest(dev)
+    col, emb, ing_tokens, ing_texts, prep_launches = run_ingest(dev)
     log(f"[tokens] hybrid_search_text_batch over {col.dense.size:,} chunks, "
         f"{TOK_BATCHES} batches of {TOK_BATCH} ({card})")
     tok_times, tok_recall, _, tok_launches, errs = run_tokens(
@@ -2104,7 +2953,13 @@ def main() -> int:
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"tokens wire")
-    del col, emb, ing_tokens
+
+    errs, prep_err_kg = run_read_path(col, emb, ing_tokens, ing_texts, dev,
+                                      card)
+    scan_err = max(scan_err, errs[0])
+    scan_bf_err = max(scan_bf_err, errs[1])
+    bm25_err = max(bm25_err, errs[2])
+    del col, emb, ing_tokens, ing_texts
     torch.cuda.empty_cache()
 
     log("[gen-check] decode_attn kernel vs plain on the card")
@@ -2145,7 +3000,7 @@ def main() -> int:
               attn_err, attn_t),
         entry("prep_vectors", "rag_application_tpu_torch/csrc/prep_vectors.cu",
               "rag_application_tpu/ops/quant.py:66", prep_launches,
-              prep_err, prep_t),
+              max(prep_err, prep_err_kg), prep_t),
     ]}), flush=True)
     log(f"{card}")
     print(json.dumps({"ok": True, "device": {

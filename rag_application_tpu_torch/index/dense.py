@@ -12,8 +12,17 @@ Port of `rag_application_tpu/index/dense.py`. Storage:
   * ``prefix_int8`` (cap, p) optional int8 of the renormalized prefix.
 
 Capacity grows by doubling. Unlike the reference's donated jit updates,
-inserts write the capacity tensors in place; growth allocates the doubled
-tensors and copies.
+inserts and deletes write the capacity tensors in place; growth allocates
+the doubled tensors and copies.
+
+`pin`/`unpin` bracket a checkpoint capture (`index/checkpoint.py`): the
+reference's pinned inserts switch to non-donating jits so the buffers a
+snapshot captured stay valid. Here a write in place would change them, so
+the first write after a pin replaces every plane by a copy and writes
+that; the captured tensors keep the state at capture. Only that write
+(or a grow) clears the mark, so `unpin` has nothing to do: a save that
+ends cannot know whether another save captured the same planes after
+it, and a needless copy costs less than a torn snapshot.
 """
 
 from __future__ import annotations
@@ -80,6 +89,31 @@ class DenseIndex:
         # False until the first delete(): lets the fused scan drop the
         # live mask entirely when size == capacity
         self.has_deletes = False
+        # True while some pin may hold the current planes: the next
+        # in-place write copies them first (see the module doc)
+        self._captured = False
+
+    _PLANES = ("vecs", "int8", "inv_norms", "int8_recip", "live",
+               "prefix_int8")
+
+    def pin(self) -> None:
+        """Keep the current planes unchanged: the next write goes to
+        copies. Called under the owner's lock, as inserts and deletes
+        are."""
+        self._captured = True
+
+    def unpin(self) -> None:
+        """End a pin (the reference's interface). The planes stay marked
+        until the next write copies them (see the module doc)."""
+
+    def _before_write(self) -> None:
+        """Copy every plane once if a pin may hold them (copy on write)."""
+        if self._captured:
+            for name in self._PLANES:
+                t = getattr(self, name)
+                if t is not None:
+                    setattr(self, name, t.clone())
+            self._captured = False
 
     @property
     def capacity(self) -> int:
@@ -104,12 +138,10 @@ class DenseIndex:
             out[:t.shape[0]] = t
             return out
 
-        self.vecs = grown(self.vecs)
-        self.int8 = grown(self.int8)
-        self.inv_norms = grown(self.inv_norms)
-        self.int8_recip = grown(self.int8_recip)
-        self.live = grown(self.live)
-        self.prefix_int8 = grown(self.prefix_int8)
+        for name in self._PLANES:
+            setattr(self, name, grown(getattr(self, name)))
+        # the grown planes are new tensors no pin holds
+        self._captured = False
 
     def insert(self, embeddings) -> np.ndarray:
         """Normalize + derive views + append a batch. Returns row ids.
@@ -118,6 +150,7 @@ class DenseIndex:
         n = xf.shape[0]
         if self.size + n > self.capacity:
             self._grow(self.size + n)
+        self._before_write()
         start, end = self.size, self.size + n
         # one prep pass (one CUDA launch on the card) writes rows
         # [start, end) of the planes in place and sets them live, in
@@ -140,6 +173,7 @@ class DenseIndex:
     def delete(self, rows) -> None:
         """Tombstone rows."""
         rows = torch.as_tensor(np.asarray(rows), device=self.device).long()
+        self._before_write()
         self.live[rows] = False
         self.has_deletes = True
 

@@ -17,6 +17,7 @@ Inserts/deletes mark the index dirty; the next search rebuilds.
 from __future__ import annotations
 
 import math
+import threading
 from typing import List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -89,6 +90,9 @@ class SparseIndex:
         self._deleted: Set[int] = set()
         self._dirty = True
         self._device: Optional[dict] = None
+        # two searches in two threads (the micro-batcher's groups) must
+        # not rebuild the lazy device tables at once
+        self._build_lock = threading.Lock()
 
     # ------------------------------------------------------------------ host
 
@@ -382,9 +386,10 @@ class SparseIndex:
         self._dirty = False
 
     def device_arrays(self) -> dict:
-        if self._dirty:
-            self.rebuild()
-        return self._device
+        with self._build_lock:
+            if self._dirty:
+                self.rebuild()
+            return self._device
 
     # ---------------------------------------------------------------- query
 

@@ -4,13 +4,18 @@ shared library; `launch` calls one of its C entry points."""
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import threading
+from typing import Dict, Optional
 
 import torch
 
 from .build import load
 
-__all__ = ["launch", "load", "ptr"]
+__all__ = ["count_launch", "launch", "load", "ptr"]
+
+# two threads may launch at once (the micro-batcher keeps two groups in
+# flight): the counts' read-modify-write is taken under this lock
+_count_lock = threading.Lock()
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[ctypes.c_void_p]:
@@ -28,3 +33,13 @@ def launch(entry: str, device: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{entry} failed: "
                            f"{lib.kernels_error_string(rc).decode()}")
+
+
+def count_launch(wrapper, by: Optional[Dict[str, int]] = None,
+                 key: Optional[str] = None) -> None:
+    """Add one to a kernel wrapper's ``launches`` (and to ``by[key]``,
+    a count by kernel), under a lock."""
+    with _count_lock:
+        wrapper.launches += 1
+        if by is not None:
+            by[key] += 1

@@ -9,11 +9,16 @@ Parity: the reference caches embeddings in Redis keyed
 redis_cache.py:19-48). Here the cache is an in-process LRU in front of
 batched encoder forward passes — the misses of a batch are encoded in
 one device call, hits skip the device entirely.
+
+Unlike the reference's, reads and writes take a lock: the orchestrator
+and the micro-batcher encode from several threads at once, and an LRU
+move of a key another thread just evicted would raise.
 """
 
 from __future__ import annotations
 
 import hashlib
+import threading
 import time
 from collections import OrderedDict
 from typing import Optional
@@ -30,6 +35,7 @@ class EmbeddingCache:
         self._store: "OrderedDict[str, tuple[float, np.ndarray]]" = OrderedDict()
         self.hits = 0
         self.misses = 0
+        self._lock = threading.Lock()
 
     def key(self, text: str) -> str:
         h = hashlib.sha256(text.encode()).hexdigest()
@@ -37,6 +43,10 @@ class EmbeddingCache:
 
     def get(self, text: str) -> Optional[np.ndarray]:
         k = self.key(text)
+        with self._lock:
+            return self._get(k)
+
+    def _get(self, k: str) -> Optional[np.ndarray]:
         entry = self._store.get(k)
         if entry is None:
             self.misses += 1
@@ -52,20 +62,24 @@ class EmbeddingCache:
 
     def clear(self) -> None:
         """Drop every entry (e.g. after the encoder's weights change)."""
-        self._store.clear()
+        with self._lock:
+            self._store.clear()
 
     def put(self, text: str, vec: np.ndarray) -> None:
         k = self.key(text)
         # copy: callers pass views into whole batch arrays — asarray
         # would pin the full (batch, dim) parent per cached row
-        self._store[k] = (time.monotonic(), np.array(vec, copy=True))
-        self._store.move_to_end(k)
-        while len(self._store) > self.capacity:
-            self._store.popitem(last=False)
+        entry = (time.monotonic(), np.array(vec, copy=True))
+        with self._lock:
+            self._store[k] = entry
+            self._store.move_to_end(k)
+            while len(self._store) > self.capacity:
+                self._store.popitem(last=False)
 
     def purge(self) -> None:
         """Parity: RedisCache.purge_cache."""
-        self._store.clear()
+        with self._lock:
+            self._store.clear()
 
     def __len__(self) -> int:
         return len(self._store)

@@ -17,6 +17,7 @@ from .bm25 import (
 )
 from .rrf import INVALID_ID, first_occurrence_mask, rrf_fuse
 from .fused_topk import fused_scan_topk, scan_sheet
+from .graph_hop import k_hop_expand, path_first_hop, path_reachability
 
 __all__ = [
     "blocked_topk",
@@ -40,4 +41,7 @@ __all__ = [
     "rrf_fuse",
     "fused_scan_topk",
     "scan_sheet",
+    "k_hop_expand",
+    "path_first_hop",
+    "path_reachability",
 ]

@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..kernels import launch, ptr
+from ..kernels import count_launch, launch, ptr
 from .topk import NEG_INF, stable_topk
 
 
@@ -108,7 +108,7 @@ def bm25_match_rows(doc_packed: torch.Tensor, cand: torch.Tensor,
            doc_packed.stride(0), ptr(doc_packed[:, l:]), doc_packed.stride(0),
            ptr(cand), doc_packed.shape[0], q, pool, l, ptr(q_terms),
            ptr(q_valid), q_terms.shape[1], ptr(out))
-    bm25_match_rows.launches += 1
+    count_launch(bm25_match_rows)
     return out
 
 
@@ -148,7 +148,7 @@ def bm25_match_scores(dt: torch.Tensor, dw: torch.Tensor,
     launch("bm25_match_launch", dt.device, ptr(dt), dt.stride(1), ptr(dw),
            dw.stride(1), None, 0, q, pool, l, ptr(q_terms), ptr(q_valid),
            q_terms.shape[1], ptr(out))
-    bm25_match_scores.launches += 1
+    count_launch(bm25_match_scores)
     return out
 
 

@@ -29,7 +29,7 @@ from typing import Dict, Optional
 
 import torch
 
-from ..kernels import launch, load, ptr
+from ..kernels import count_launch, launch, load, ptr
 
 NEG = -1.0e30
 
@@ -180,7 +180,7 @@ def decode_attend_int8(qg: torch.Tensor, ck: Dict[str, torch.Tensor],
     launch("decode_attn_launch", qg.device, ptr(qg), ptr(ck["q"]),
            ptr(ck["s"]), ptr(cv["q"]), ptr(cv["s"]), ptr(mask), B, S, KVH, G,
            hd, chunk, 1.0 / math.sqrt(hd), ptr(part), ptr(out))
-    decode_attend_int8.launches += 1
+    count_launch(decode_attend_int8)
     return out
 
 

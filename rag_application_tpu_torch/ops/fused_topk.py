@@ -46,7 +46,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..kernels import launch, ptr
+from ..kernels import count_launch, launch, ptr
 from ..utils import cdiv, round_up
 from .topk import dot_scores, stable_topk
 
@@ -294,8 +294,7 @@ def scan_sheet(corpus: torch.Tensor, queries: torch.Tensor,
            ptr(queries), qn, d, ptr(inv_norms), ptr(mask),
            -1 if valid_n is None else int(valid_n),
            nb, block_rows, nseg, _MODES[mode], ptr(vals), ptr(ids))
-    scan_sheet.launches += 1
-    route_launches[route] += 1
+    count_launch(scan_sheet, route_launches, route)
     return vals, ids
 
 

@@ -22,7 +22,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ..kernels import launch, ptr
+from ..kernels import count_launch, launch, ptr
 
 
 def quantize_int8(x: torch.Tensor) -> torch.Tensor:
@@ -150,7 +150,7 @@ def prepare_vectors(
     if n == 0:
         return norm, i8, inv
     _launch_prep(xf, dims, norm, i8, inv, None)
-    prepare_vectors.launches += 1
+    count_launch(prepare_vectors)
     return norm, i8, inv
 
 
@@ -214,7 +214,7 @@ def prepare_vectors_into(x: torch.Tensor, dims: Sequence[int],
     _launch_prep(xf, dims, None if vecs is None else vecs[start:],
                  None if int8 is None else int8[start:], inv_norms[start:],
                  live[start:])
-    prepare_vectors_into.launches += 1
+    count_launch(prepare_vectors_into)
 
 
 prepare_vectors_into.launches = 0

@@ -8,9 +8,9 @@ on the card. Reads go through the fused funnel, by vector
 (`hybrid_search_batch`) or by text over the tokens wire
 (`bind_query_encoder` + `hybrid_search_text_batch`).
 
-Not ported yet: the ANN engine (`build_ann`/`ann_search` need
-`index/ivf.py`) raises; checkpointing (`index/checkpoint.py`) is a later
-slice.
+`index/checkpoint.py` saves and restores a collection in the reference's
+file format (`save_collection` / `load_collection`). Not ported yet: the
+ANN engine (`build_ann`/`ann_search` need `index/ivf.py`) raises.
 """
 
 from __future__ import annotations
@@ -40,9 +40,9 @@ class SearchHit:
 
 
 def mutator(fn):
-    """Serialize writers (and, once checkpointing is ported, the
-    snapshotter) on the collection's lock, so dense, sparse and payload
-    rows never drift apart mid-insert."""
+    """Serialize writers and the checkpoint capture
+    (`index/checkpoint.py::save_collection`) on the collection's lock, so
+    dense, sparse and payload rows never drift apart mid-insert."""
     @functools.wraps(fn)
     def inner(self, *args, **kwargs):
         with self.lock:

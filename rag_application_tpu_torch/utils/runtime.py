@@ -9,6 +9,7 @@ CPU fallback.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Iterator, Optional, Union
 
 import torch
@@ -37,14 +38,30 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+# threads inside `full_f32_matmul` and the TF32 setting they found: the
+# switch is process-wide, so one thread's exit must not turn TF32 back on
+# under another's product
+_f32_lock = threading.Lock()
+_f32_users = 0
+_f32_saved = False
+
+
 @contextlib.contextmanager
 def full_f32_matmul() -> Iterator[None]:
     """Run float32 products in full float32 on the card (TF32 off) —
     the precision the JAX package asks for with
-    ``preferred_element_type=float32``. Restores the caller's setting."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    ``preferred_element_type=float32``. The caller's setting comes back
+    when the last thread inside leaves."""
+    global _f32_users, _f32_saved
+    with _f32_lock:
+        if not _f32_users:
+            _f32_saved = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _f32_users += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        with _f32_lock:
+            _f32_users -= 1
+            if not _f32_users:
+                torch.backends.cuda.matmul.allow_tf32 = _f32_saved

@@ -20,7 +20,7 @@ for m in mods + ["chip_smoke"]:
 leaked = sorted(m for m in sys.modules
                 if m == "rag_application_tpu" or m.startswith("rag_application_tpu."))
 assert not leaked, leaked
-print(len(mods))
+print(" ".join(mods))
 """
 
 
@@ -29,8 +29,14 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=_REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    # ops (incl. decode_attn), index (incl. payload), search (incl.
-    # params, rerank), kernels, native (incl. wordpiece_lib), models
+    mods = set(out.stdout.strip().splitlines()[-1].split())
+    # ops (incl. decode_attn, graph_hop), index (incl. payload,
+    # checkpoint), search (incl. params, rerank, batcher, hybrid,
+    # orchestration), kg, kernels, native (incl. wordpiece_lib), models
     # (decoder, wordpiece, encoder, embedder, tokenizer, cache), store
     # (collection), llm (router, local), utils, config, state, ...
-    assert int(out.stdout.strip().splitlines()[-1]) >= 38
+    assert len(mods) >= 49
+    assert {f"rag_application_tpu_torch.{m}" for m in (
+        "index.checkpoint", "search.batcher", "search.hybrid",
+        "search.orchestration", "ops.graph_hop", "kg.store",
+        "kg.checkpoint", "kg.dedup", "kg.extract")} <= mods
