@@ -41,11 +41,14 @@
    12 heads, MLP 1536, out 768, bf16, random weights from seed 0;
    Embedder windows of 128 tokens in batches of 64):
    `[prep-check]` the insert prep kernel bit-equal to its plain version
-   at six shapes (a 131,072 x 768 slab, a 64-row document, one row,
-   1037 x 100, dims=(), zero and rescaled rows), and in place
+   at seven shapes (a 131,072 x 768 slab, a 64-row document, one row
+   with and without dims, 1037 x 100, dims=(), zero and rescaled rows),
+   and in place
    (`prepare_vectors_into`) at three row offsets of index-shaped planes
    whose guard rows must stay untouched; `[prep-time]` its kernel (in
-   place and into new tensors) and plain times beside its bytes bound;
+   place and into new tensors) and plain times beside its bytes bound,
+   at the slab, the document and the two one-row shapes `[pipeline]`
+   launches (1 x 768 with dims (64, 128, 256), and with none);
    `[ingest]` 4,096 documents x 64 chunks (24-word zipf texts) through
    `Embedder.encode` and `Collection.store_document_vectors` (chunks/s,
    encode and store ms per document, a profiled document's device busy
@@ -87,7 +90,28 @@
    bit-equal, a tokens batch and the 64 orchestrator queries answered
    the same, bit for bit, their launches held to plain), then a save
    during which another thread deletes a document and inserts one, whose
-   snapshot must be the state at capture.
+   snapshot must be the state at capture. Then `[pipeline]`: documents
+   through `IngestPipeline` as `api/app.py` wires it (`IngestConfig()`:
+   8,000-char chunks, 10 workers, 5 retries; an `ObjectStore` under
+   build/; the KG hook, with an extractor stub that draws a page of
+   `[kg]`'s shape from `[kg]`'s vocabulary, seeded by the text) into that
+   Collection and KGStore: the five non-CSV real fixtures, 64 generated
+   text documents of 16 chunks of `[ingest]`'s zipf words, a PDF and a
+   docx built here, and one `ingest_url` through a stub fetcher
+   (documents/s and chunks/s by kind, encode / store / KG upsert ms a
+   chunk task, a profiled document's device busy share, peak memory).
+   The failed ledger must be empty, each result's counts those of the
+   parsers and the payload table, the prep launches exactly the
+   Collection inserts plus the KG rows, the first document's launches
+   (1 x 768 with the Collection's dims, and with none for the KG rows)
+   bit-equal to plain in place; a re-ingest leaves the chunk count and
+   the KG's stats unchanged; the documents again (the generated ones up
+   to 16) at `max_concurrency=1` into fresh stores (a fresh embedding
+   cache) give the same payloads and bit-equal vectors by (document, page
+   or chunk), and the same KG rows by key but where a relationship met on
+   several pages of a document keeps another page's profile (its last
+   upsert wins); a tokens-wire batch of 256 noisy texts of the new chunks answers with recall@10 >= 0.95,
+   its scan and match launches held to plain.
 8. Local generation (`[gen-*]`), TinyLlama-1.1B-Chat-v1.0 at its
    published widths with random bf16 weights from a seed, int8 weights
    and int8 KV cache, `attn_kernel=True`:
@@ -130,6 +154,12 @@ step 4 alone, for kernel work on either kernel.
 
 runs steps 1-2, `[ingest]` and `[tokens]` of step 6 and step 7 alone,
 for work on the serving read path.
+
+    python3 chip_smoke.py --pipeline
+
+runs steps 1-2, `[ingest]` of step 6 and `[pipeline]` of step 7 alone,
+into `[ingest]`'s collection and a new KGStore at the API's width, for
+work on the ingest pipeline.
 """
 
 from __future__ import annotations
@@ -193,17 +223,33 @@ BATCHER_REQS, BATCHER_MAX = 2048, 256  # api/app.py: max_batch 256, 2 ms
 HYB_QUERIES = 256
 CKPT_DIR = "build/smoke_checkpoints"
 
+# [pipeline]: documents through IngestPipeline (IngestConfig() defaults, an
+# ObjectStore under build/) into the read path's Collection and KGStore:
+# the real non-CSV fixtures, PIPE_DOCS generated text documents of
+# PIPE_CHUNKS 8,000-char chunks of [ingest]'s zipf words, a PDF and a docx
+# built here, and one URL through a stub fetcher
+PIPE_REAL = ("Resume.pdf", "ragas_papers.pdf", "cube.PDF",
+             "Vivek Malipatel - Resume.docx", "Intro To ML - Slide.pptx")
+# 64 generated documents, not 128: at 128 the whole run took 725 s of
+# its 1,200 (the pipeline 425 of them), over half its limit
+PIPE_DOCS, PIPE_CHUNKS = 64, 16
+PIPE_SERIAL_DOCS = 16  # generated documents again at max_concurrency=1
+PIPE_URL = "https://docs.example.com/guides/retrieval"
+PIPE_OBJECTS = "build/smoke_objects"
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def zipf_probs(n):
+    p = 1.0 / np.arange(1, n + 1)
+    return p / p.sum()
+
+
 def synth_tokens(rng, n, vocab=VOCAB, doc_len=DOC_LEN):
     """Zipfian bag-of-words docs, as a token-id matrix (bench.py's)."""
-    ranks = np.arange(1, vocab + 1)
-    probs = 1.0 / ranks
-    probs /= probs.sum()
-    return rng.choice(vocab, size=(n, doc_len), p=probs)
+    return rng.choice(vocab, size=(n, doc_len), p=zipf_probs(vocab))
 
 
 def gpu_line() -> str:
@@ -546,8 +592,10 @@ def near_ties_ok(c, qs, inv, ki, pi, tol) -> bool:
 def check_bm25(sparse, texts):
     """Kernel vs plain: the fused entry `bm25_match_rows` bit-equal to
     `bm25_match_rows_plain` on the batch's real stage-1 candidates, on
-    rows of sentinels only, at pool 24, at T 5 with invalid slots and at
-    L 8; the gathered-rows entry `bm25_match_scores` bit-equal to its
+    rows of sentinels only, at pool 24, at T 5 with invalid slots, at
+    L 8, and at L 1024 and 1001 (long documents: rows matched in chunks,
+    the second with 4-byte copies and a ragged last chunk); the
+    gathered-rows entry `bm25_match_scores` bit-equal to its
     plain version on a random pool-24 case. Returns (max abs err,
     (doc_packed, cand, q_terms, q_valid) of the batch)."""
     import torch
@@ -582,6 +630,7 @@ def check_bm25(sparse, texts):
                              dtype=torch.int32)
 
     t32, t8 = table(5000, 32), table(5000, 8)
+    t1024, t1001 = table(2000, 1024), table(2000, 1001)
     cases = [("main-path candidates", doc_packed, cand, q_terms, q_valid),
              ("rows all sentinel", doc_packed,
               torch.full_like(cand[:256], n_docs), q_terms[:256],
@@ -589,7 +638,9 @@ def check_bm25(sparse, texts):
              ("pool 24", t32, ids(1000, 24, 5000), *queries(1000, 32)),
              ("T 5 with invalid slots", t32, ids(1000, 16, 5000),
               *queries(1000, 5)),
-             ("L 8", t8, ids(1000, 16, 5000), *queries(1000, 32))]
+             ("L 8", t8, ids(1000, 16, 5000), *queries(1000, 32)),
+             ("L 1024", t1024, ids(1000, 16, 2000), *queries(1000, 32)),
+             ("L 1001", t1001, ids(300, 24, 2000), *queries(300, 5))]
     worst = 0.0
     for label, tab, c, qt, qv in cases:
         k_out = ob.bm25_match_rows(tab, c, qt, qv)
@@ -1156,7 +1207,7 @@ def prep_inputs(dev, n, d, seed, special=False):
 
 def check_prep(dev):
     """Kernel vs plain, bit for bit (the plain version adds in the
-    kernel's order): the fresh-tensor entry `prepare_vectors` at six
+    kernel's order): the fresh-tensor entry `prepare_vectors` at seven
     shapes, then the in-place entry `prepare_vectors_into` at three start
     offsets of index-shaped planes filled with random bits, whose rows
     outside the written range must stay as they were. Zero rows give
@@ -1175,6 +1226,7 @@ def check_prep(dev):
              (f"document {EMB_BATCH} x {DIM}", EMB_BATCH, DIM, PREP_DIMS,
               False),
              (f"1 x {DIM}", 1, DIM, PREP_DIMS, False),
+             (f"1 x {DIM}", 1, DIM, (), False),
              ("1037 x 100", 1037, 100, (16, 100), False),
              (f"4096 x {DIM}", 4096, DIM, (), False),
              (f"zero + 1e-3/1e3-scaled rows, 300 x {DIM}", 300, DIM,
@@ -1260,16 +1312,17 @@ def device_ms(fn, reps: int, match: str | None = None, *more: str):
 
 
 def time_prep(dev):
-    """Kernel and plain ms at the slab and the document shape, beside the
-    bytes bound (the function moves 4d bytes in and 3d + 4M + 1 out per
-    row). The kernel is timed as `DenseIndex.insert` launches it, in
-    place into an index's planes (rows 1000 on for the document), and
-    beside it through the fresh-tensor entry. The times are device times
-    from the profiler; at the document shape CUDA events around
-    back-to-back calls measure the host's enqueue rate instead, which is
-    logged beside them. Returns (ms, plain_ms, None, bound_ms, bound_by)
-    for each, the slab's first; the document's is the shape `[ingest]`
-    launches."""
+    """Kernel and plain ms at the slab, the document and the two one-row
+    shapes, beside the bytes bound (the function moves 4d bytes in and
+    3d + 4M + 1 out per row, M prefix dims). The kernel is timed as
+    `DenseIndex.insert` launches it, in place into an index's planes
+    (rows 1000 on below the slab), and beside it through the fresh-tensor
+    entry. The times are device times from the profiler; below the slab
+    CUDA events around back-to-back calls measure the host's enqueue rate
+    instead, which is logged beside them. Returns (ms, plain_ms, None,
+    bound_ms, bound_by) for each: the slab, the document (the shape
+    `[ingest]` launches), then one row with the Collection's dims and one
+    with none (the shapes `[pipeline]` launches: a chunk, a KG row)."""
     import torch
 
     from rag_application_tpu_torch.ops import quant as oq
@@ -1282,33 +1335,36 @@ def time_prep(dev):
         return ms
 
     out = []
-    for n, start, reps in ((PREP_SLAB, 0, 20), (EMB_BATCH, 1000, 200)):
+    for n, start, reps, dims in ((PREP_SLAB, 0, 20, PREP_DIMS),
+                                 (EMB_BATCH, 1000, 200, PREP_DIMS),
+                                 (1, 1000, 200, PREP_DIMS),
+                                 (1, 1000, 200, ())):
         x = prep_inputs(dev, n, DIM, 40)
         cap = start + n
         planes = (torch.zeros((cap, DIM), dtype=torch.bfloat16, device=dev),
                   torch.zeros((cap, DIM), dtype=torch.int8, device=dev),
-                  torch.zeros((cap, len(PREP_DIMS)), device=dev),
+                  torch.zeros((cap, len(dims)), device=dev),
                   torch.zeros((cap,), dtype=torch.bool, device=dev))
         run = lambda: oq.prepare_vectors_into(  # noqa: E731
-            x, PREP_DIMS, *planes, start)
-        fresh = lambda: oq.prepare_vectors(x, PREP_DIMS)  # noqa: E731
-        plain = lambda: oq.prepare_vectors_plain(x, PREP_DIMS)  # noqa: E731
+            x, dims, *planes, start)
+        fresh = lambda: oq.prepare_vectors(x, dims)  # noqa: E731
+        plain = lambda: oq.prepare_vectors_plain(x, dims)  # noqa: E731
         ms = prep_ms(kernel_times(run, reps))
         fresh_ms = prep_ms(kernel_times(fresh, reps))
         plain_ms = device_ms(plain, max(5, reps // 10))
         paced = cuda_ms(run, reps=reps)
         paced_plain = cuda_ms(plain, reps=max(5, reps // 10))
-        nbytes = n * DIM * 4 + n * DIM * 3 + n * len(PREP_DIMS) * 4 + n
-        ops = n * DIM * (8 + len(PREP_DIMS))
+        nbytes = n * DIM * 4 + n * DIM * 3 + n * len(dims) * 4 + n
+        ops = n * DIM * (8 + len(dims))
         bound = max(nbytes / HBM_BYTES_S, ops / F32_OPS_S) * 1e3
         by = "bytes" if nbytes / HBM_BYTES_S >= ops / F32_OPS_S \
             else "operations"
-        log(f"  prep_vectors {n} x {DIM}, dims {PREP_DIMS}: kernel in place "
+        log(f"  prep_vectors {n} x {DIM}, dims {dims}: kernel in place "
             f"{ms:.5f} ms (into new tensors {fresh_ms:.5f}), plain "
             f"{plain_ms:.5f} ms (device time, profiler); back-to-back calls "
             f"by CUDA events: kernel {paced:.5f} ms, plain {paced_plain:.5f}"
-            f" ms; bound {bound:.5f} ms ({by}: {nbytes / 1e6:.3f} MB), no "
-            f"library call")
+            f" ms; bound {bound:.3g} ms ({by}: {nbytes:,} B), no library "
+            f"call")
         out.append((ms, plain_ms, None, bound, by))
         del planes
     # what a document's launch waits on: the same kernel with parts of its
@@ -1349,7 +1405,7 @@ def run_ingest(dev):
     call each per document, then a document's `DenseIndex.insert` alone
     under the profiler, which must be the upload and one in-place prep
     launch. Returns (collection, embedder, tokens, texts,
-    prepare_vectors_into launches)."""
+    prepare_vectors_into launches, chunks/s)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1456,7 +1512,7 @@ def run_ingest(dev):
             or "prep_vectors_" not in next(iter(kernels)):
         raise AssertionError(f"DenseIndex.insert ran {kernels}, not one "
                              f"prep launch")
-    return col, emb, tokens, texts, launches
+    return col, emb, tokens, texts, launches, timed / total_s
 
 
 def noisy_texts(tokens, idx, seed):
@@ -1726,6 +1782,32 @@ def kg_vocab(rng):
     return names, types, phrases
 
 
+def kg_page(rng, names, types, phrases, zipf):
+    """One page's extraction as the KG extractor returns it: KG_ENTS
+    distinct entities drawn by ``zipf`` over the names and KG_RELS
+    distinct (source, target, type) relationships between them, each
+    profiled by one of the phrases. Returns (name indices, phrase
+    indices, {"entities", "relationships"})."""
+    from rag_application_tpu_torch.kg.extract import RELATION_TYPES, slugify
+
+    idx = rng.choice(KG_NAMES, KG_ENTS, replace=False, p=zipf)
+    ents = [{"id": slugify(names[j]), "text": names[j],
+             "entity_type": types[j],
+             "entity_profile": f"{names[j]} profile"} for j in idx]
+    rels, keys, ph = [], set(), []
+    while len(rels) < KG_RELS:
+        a, b = rng.choice(KG_ENTS, 2, replace=False)
+        t = int(rng.integers(len(RELATION_TYPES)))
+        if (a, b, t) in keys:
+            continue
+        keys.add((a, b, t))
+        ph.append(int(rng.integers(KG_PHRASES)))
+        rels.append({"source": ents[a]["id"], "target": ents[b]["id"],
+                     "relation_type": RELATION_TYPES[t],
+                     "relationship_profile": phrases[ph[-1]]})
+    return idx, ph, {"entities": ents, "relationships": rels}
+
+
 def near(rng, base):
     """Unit rows at cosine ~KG_COS to the unit rows of ``base``."""
     sigma = np.sqrt(1.0 / KG_COS ** 2 - 1.0) / np.sqrt(base.shape[1])
@@ -1745,7 +1827,6 @@ def run_kg(col, emb, texts, dev):
     from rag_application_tpu_torch.config import KGConfig
     from rag_application_tpu_torch.index import dense as idense
     from rag_application_tpu_torch.kg import dedup as dd
-    from rag_application_tpu_torch.kg.extract import RELATION_TYPES, slugify
     from rag_application_tpu_torch.kg.store import KGStore, Space
     from rag_application_tpu_torch.ops import quant as oq
 
@@ -1755,8 +1836,7 @@ def run_kg(col, emb, texts, dev):
     names, types, phrases = kg_vocab(rng)
     name_vecs = emb.encode(names)
     phrase_vecs = emb.encode(phrases)
-    zipf = 1.0 / np.arange(1, KG_NAMES + 1)
-    zipf /= zipf.sum()
+    zipf = zipf_probs(KG_NAMES)
     # a page's embedding: the mean of its document's chunk rows
     vecs = col.dense.vecs
     page_vecs = torch.cat([
@@ -1770,26 +1850,11 @@ def run_kg(col, emb, texts, dev):
         f"{kg.cfg.max_hops}")
 
     def page(i):
-        idx = rng.choice(KG_NAMES, KG_ENTS, replace=False, p=zipf)
-        ents = [{"id": slugify(names[j]), "text": names[j],
-                 "entity_type": types[j],
-                 "entity_profile": f"{names[j]} profile"} for j in idx]
-        rels, keys, ph = [], set(), []
-        while len(rels) < KG_RELS:
-            a, b = rng.choice(KG_ENTS, 2, replace=False)
-            t = int(rng.integers(len(RELATION_TYPES)))
-            if (a, b, t) in keys:
-                continue
-            keys.add((a, b, t))
-            ph.append(int(rng.integers(KG_PHRASES)))
-            rels.append({"source": ents[a]["id"], "target": ents[b]["id"],
-                         "relation_type": RELATION_TYPES[t],
-                         "relationship_profile": phrases[ph[-1]]})
+        idx, ph, found = kg_page(rng, names, types, phrases, zipf)
         rel_vecs = near(rng, phrase_vecs[ph])
         return [names[j] for j in idx], dict(
             content=texts[i * INGEST_CHUNKS], embedding=page_vecs[i],
-            entities=ents, relationships=rels,
-            entity_embeddings=near(rng, name_vecs[idx]),
+            **found, entity_embeddings=near(rng, name_vecs[idx]),
             relationship_embeddings=rel_vecs)
 
     torch.cuda.synchronize()
@@ -1819,18 +1884,9 @@ def run_kg(col, emb, texts, dev):
     if launches != want or stats["entity"] != INGEST_DOCS * KG_ENTS \
             or stats["relationship"] != INGEST_DOCS * KG_RELS:
         raise AssertionError(f"[kg] launches {launches}, stats {stats}")
-    for args, _, _, _ in preps:
-        x, dims, pv, pi, _, pl, start = args
-        plain = oq.prepare_vectors_plain(x, dims)
-        end = start + x.shape[0]
-        if dims or not (torch.equal(pv[start:end].view(torch.int16),
-                                    plain[0].view(torch.int16))
-                        and torch.equal(pi[start:end], plain[1])
-                        and bool(pl[start:end].all().item())):
-            raise AssertionError(f"[kg] a page's prep launch at row {start} "
-                                 f"!= plain")
-    log(f"  the first page's {len(preps)} prep launches (1 row each, dims "
-        f"()) bit-equal to plain in the KG's planes")
+    if check_preps("[kg] the first page", preps) != {(1, ()): len(preps)}:
+        raise AssertionError("[kg] the first page's prep launches are not "
+                             "one row each with no dims")
 
     # dedup: the self-kNN over every entity row, then the merges
     found = {}
@@ -2377,6 +2433,393 @@ def run_checkpoint(col, kg, emb, names, queries, results, tok_texts, dev):
     return errs
 
 
+def pipeline_docs(names):
+    """[pipeline]'s traffic: (kind, document id, bytes) of the real
+    fixtures, the generated text documents, a built PDF and docx, and the
+    HTML page the stub fetcher serves for PIPE_URL."""
+    import importlib.util
+    import os
+
+    from rag_application_tpu_torch.ingest.chunker import chunk_words
+
+    # the repo's fixture makers, loaded by path: a `tests` package
+    # installed in site-packages can shadow the checkout's directory
+    spec = importlib.util.spec_from_file_location(
+        "make_fixtures", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tests", "fixtures", "make_fixtures.py"))
+    fixtures = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixtures)
+    docs = []
+    for name in PIPE_REAL:
+        with open(f"tests/fixtures/real/{name}", "rb") as f:
+            docs.append((name.rsplit(".", 1)[1].lower(), name, f.read()))
+    rng = np.random.default_rng(23)
+    words = rng.choice(VOCAB, size=(PIPE_DOCS, PIPE_CHUNKS * 1800),
+                       p=zipf_probs(VOCAB))
+    for d in range(PIPE_DOCS):
+        text = " ".join(f"w{t}" for t in words[d])
+        text = " ".join(chunk_words(text, 8000)[:PIPE_CHUNKS])
+        docs.append(("text", f"gen-{d:03d}.txt", text.encode()))
+    lines = [" ".join(names[7 * i:7 * i + 7]) for i in range(24)]
+    docs.append(("pdf", "built.pdf", fixtures.build_pdf(
+        [fixtures.text_page(lines[i:i + 8]) for i in (0, 8, 16)])))
+    docs.append(("docx", "built.docx", fixtures.build_docx(
+        [lines[:12], lines[12:]])))
+    html = ("<html><head><title>Retrieval guide</title><script>track()"
+            "</script></head><body><h1>Retrieval</h1>" + "".join(
+                f"<p>{ln}.</p>" for ln in lines * 20) + "</body></html>")
+    docs.append(("url", PIPE_URL, html.encode()))
+    return docs
+
+
+def pipeline_extractor(vocab, calls):
+    """The KG extractor stub: a page of [kg]'s shape drawn from [kg]'s
+    vocabulary, seeded by the text (the same text, the same page).
+    Appends (entities, relationships) per call to ``calls``."""
+    import zlib
+
+    names, types, phrases = vocab
+    zipf = zipf_probs(KG_NAMES)
+
+    def extract(text):
+        rng = np.random.default_rng(zlib.crc32(text.encode()))
+        found = kg_page(rng, names, types, phrases, zipf)[2]
+        calls.append((len(found["entities"]), len(found["relationships"])))
+        return found
+
+    return extract
+
+
+def expected_chunks(kind, data):
+    """Chunk tasks a document fans out to, by the ported parsers."""
+    from rag_application_tpu_torch.ingest import office, pdf
+    from rag_application_tpu_torch.ingest.chunker import chunk_words
+    from rag_application_tpu_torch.tools.web import html_to_text
+
+    if kind == "pdf":
+        return len(pdf.extract_pages(data))
+    if kind in ("docx", "pptx"):
+        return len(office.extract_pages(data))
+    text = data.decode()
+    return len(chunk_words(html_to_text(text) if kind == "url" else text,
+                           8000))
+
+
+def timed(obj, name, log):
+    """Wrap ``obj.name`` to append (len(first argument) or None, host
+    seconds) per call to ``log`` (the calls may come from threads)."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        log.append((len(args[0]) if isinstance(args[0], list) else None,
+                    time.perf_counter() - t0))
+        return out
+
+    setattr(obj, name, wrapper)
+
+
+def check_preps(label, preps):
+    """Each recorded `prepare_vectors_into` launch against the plain
+    version on the same rows, bit for bit, in the index's planes. Returns
+    the launches by (rows, dims)."""
+    import torch
+
+    from rag_application_tpu_torch.ops import quant as oq
+
+    shapes = {}
+    for args, _, _, _ in preps:
+        x, dims, pv, pi, inv, live, start = args
+        end = start + x.shape[0]
+        want = oq.prepare_vectors_plain(x, dims)
+        ok = (torch.equal(pv[start:end].view(torch.int16),
+                          want[0].view(torch.int16))
+              and torch.equal(pi[start:end], want[1])
+              and torch.equal(inv[start:end], want[2])
+              and bool(live[start:end].all().item()))
+        if not ok:
+            raise AssertionError(f"{label}: a prep launch at row {start}, "
+                                 f"dims {dims}, != plain")
+        key = (x.shape[0], tuple(dims))
+        shapes[key] = shapes.get(key, 0) + 1
+    log(f"  {label}: {len(preps)} prep launches bit-equal to plain in the "
+        f"index's planes, by (rows, dims): {shapes}")
+    return shapes
+
+
+def keyed_rows(col, docs):
+    """{(document id, page_number or chunk_index): row} of the live
+    chunks of ``docs`` (a page's chunk also carries chunk_index 0)."""
+    out = {}
+    for doc in docs:
+        for r in col.payloads.rows_where(document_id=doc):
+            p = col.payloads.get(r)
+            out[(doc, p.get("page_number", p.get("chunk_index")))] = r
+    return out
+
+
+def same_rows(a, ra, b, rb):
+    """Rows ``ra`` of dense index ``a`` and ``rb`` of ``b``, bit for bit."""
+    import torch
+
+    ra, rb = (torch.as_tensor(r, device=a.vecs.device) for r in (ra, rb))
+    return all(torch.equal(x[ra].view(torch.uint8), y[rb].view(torch.uint8))
+               for x, y in ((a.vecs, b.vecs), (a.int8, b.int8),
+                            (a.inv_norms, b.inv_norms), (a.live, b.live)))
+
+
+def run_pipeline(col, emb, kg, ing_rate, dev):
+    """[pipeline]: the documents of `pipeline_docs` through
+    `IngestPipeline` (the API's wiring: `IngestConfig()`, an ObjectStore,
+    the KG hook), one `ingest_file` / `ingest_url` call each, into ``col``
+    and ``kg``, then one document again. Checks the ledgers and counts,
+    the prep launches (equal to the inserts; the first document's held
+    to plain), the same documents at `max_concurrency=1` into fresh
+    stores (same payloads, bit-equal vectors by key) and a tokens-wire
+    batch over the new chunks. Returns (prep launches, (int8 scan, bf16
+    scan, bm25) max abs errs); the prep launches held are bit-equal."""
+    import asyncio
+    import shutil
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rag_application_tpu_torch.config import Config, IngestConfig
+    from rag_application_tpu_torch.index import dense as idense
+    from rag_application_tpu_torch.ingest.pipeline import IngestPipeline
+    from rag_application_tpu_torch.kg.store import KGStore, Space
+    from rag_application_tpu_torch.models.embedder import Embedder
+    from rag_application_tpu_torch.ops import bm25 as ob
+    from rag_application_tpu_torch.ops import fused_topk as ft
+    from rag_application_tpu_torch.ops import quant as oq
+    from rag_application_tpu_torch.store.collection import Collection
+    from rag_application_tpu_torch.store.objects import ObjectStore
+
+    t0 = time.perf_counter()
+    vocab = kg_vocab(np.random.default_rng(17))  # [kg]'s vocabulary
+    docs = pipeline_docs(vocab[0])
+    want = {doc: expected_chunks(kind, data) for kind, doc, data in docs}
+    pages = {doc: (1 if kind in ("text", "url") else want[doc])
+             for kind, doc, _ in docs}
+    html = {doc: data.decode() for kind, doc, data in docs if kind == "url"}
+
+    async def fetch(url):  # the stub fetcher: no network
+        return html[url]
+
+    def pipeline(col, emb, kg, root, calls, concurrency):
+        shutil.rmtree(root, ignore_errors=True)
+        return IngestPipeline(
+            col, emb, kg=kg, kg_extractor=pipeline_extractor(vocab, calls),
+            object_store=ObjectStore(root), url_fetcher=fetch,
+            config=IngestConfig(max_concurrency=concurrency))
+
+    def ingest(pipe, kind, doc, data):
+        if kind == "url":
+            return asyncio.run(pipe.ingest_url(doc, document_id=doc))
+        return asyncio.run(pipe.ingest_file(doc, data, document_id=doc))
+
+    calls = []
+    cfg = IngestConfig()
+    pipe = pipeline(col, emb, kg, PIPE_OBJECTS, calls, cfg.max_concurrency)
+    enc, store, upsert = [], [], []
+    timed(emb, "encode", enc)  # undone at the end
+    timed(col, "store_document_vectors", store)
+    timed(kg, "upsert_unstructured_page", upsert)
+    col.bind_query_encoder(emb)
+    log(f"  set-up {time.perf_counter() - t0:.1f} s: {len(docs)} documents "
+        f"({sum(want.values()):,} chunk tasks), IngestConfig(): chunk_chars "
+        f"{cfg.chunk_chars}, max_concurrency {cfg.max_concurrency}, "
+        f"max_retries {cfg.max_retries}; into {col.chunk_count():,} chunks "
+        f"and a KG of {kg.stats()}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    oq.prepare_vectors_into.launches = 0
+    oq.prepare_vectors.launches = 0
+    results, by_kind, busy = {}, {}, None
+    profiled = next(doc for kind, doc, _ in docs if kind == "text")
+    for i, (kind, doc, data) in enumerate(docs):
+        prof = None
+        if doc == profiled:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        t1 = time.perf_counter()
+        if i == 0:  # the first document's launches, held against plain
+            with recording(idense, "prepare_vectors_into") as preps:
+                res = ingest(pipe, kind, doc, data)
+        else:
+            res = ingest(pipe, kind, doc, data)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            busy = (sum(e.self_device_time_total for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA) / 1e3, dt * 1e3)
+        results[doc] = res
+        n_docs, n_chunks, secs = by_kind.get(kind, (0, 0, 0.0))
+        by_kind[kind] = (n_docs + 1, n_chunks + res.chunks, secs + dt)
+    launches = oq.prepare_vectors_into.launches
+    total_s = sum(v[2] for v in by_kind.values())
+    n_tasks = sum(r.chunks for r in results.values())
+    shapes = check_preps(f"the first document ({docs[0][1]})", preps)
+    if set(shapes) != {(1, PREP_DIMS), (1, ())}:
+        raise AssertionError(f"[pipeline] prep shapes {shapes}")
+
+    for kind, (n_docs, n_chunks, secs) in by_kind.items():
+        log(f"  {kind}: {n_docs} documents, {n_chunks:,} chunks in "
+            f"{secs:.2f} s -> {n_docs / secs:,.2f} documents/s, "
+            f"{n_chunks / secs:,.1f} chunks/s")
+    log(f"  all: {len(docs)} documents, {n_tasks:,} chunk tasks in "
+        f"{total_s:.2f} s -> {len(docs) / total_s:.2f} documents/s, "
+        f"{n_tasks / total_s:,.1f} chunks/s; [ingest] {ing_rate:,.0f} "
+        f"chunks/s (64-chunk documents, one encode and one store call "
+        f"each, no KG)")
+    one = [t for n, t in enc if n == 1]
+    many = [t for n, t in enc if n != 1]
+    log(f"  per chunk task (host clocks, ms, mean / median): encode of the "
+        f"chunk {np.mean(one) * 1e3:.2f} / {np.median(one) * 1e3:.2f} "
+        f"({len(one):,} calls), encode of its KG rows "
+        f"{np.mean(many) * 1e3:.2f} / {np.median(many) * 1e3:.2f} "
+        f"({len(many):,} calls; texts ~{KG_ENTS} and {KG_RELS}), store "
+        f"{np.mean([t for _, t in store]) * 1e3:.2f} / "
+        f"{np.median([t for _, t in store]) * 1e3:.2f}, KG upsert "
+        f"{np.mean([t for _, t in upsert]) * 1e3:.2f} / "
+        f"{np.median([t for _, t in upsert]) * 1e3:.2f}; encoder cache "
+        f"{len(emb.cache):,} entries")
+    log(f"[profile] one generated document ({profiled}, {PIPE_CHUNKS} chunk "
+        f"tasks): {busy[1]:.1f} ms wall (host clock); device busy "
+        f"{busy[0]:.2f} ms ({busy[0] / busy[1]:.1%}), idle "
+        f"{1 - busy[0] / busy[1]:.1%}")
+
+    # the ledgers, the counts and the launches
+    failed = [(t.task_type.value, t.error) for t in pipe.queue.failed]
+    wrong = {d: (r.chunks, r.pages, r.failed_tasks)
+             for d, r in results.items()
+             if (r.chunks, r.pages, r.failed_tasks) != (want[d], pages[d], 0)
+             or r.chunks != col.chunk_count(document_id=d)}
+    kg_rows = sum(1 + e + r for e, r in calls)
+    log(f"  failed ledger {failed}; results against the parsers' counts and "
+        f"the payload table: {len(results) - len(wrong)} of {len(results)} "
+        f"agree; prepare_vectors_into launches {launches:,} = Collection "
+        f"inserts {n_tasks:,} + KG rows {kg_rows:,} "
+        f"({len(calls):,} pages): {launches == n_tasks + kg_rows}; "
+        f"prepare_vectors {oq.prepare_vectors.launches}")
+    if failed or wrong or launches != n_tasks + kg_rows \
+            or oq.prepare_vectors.launches or len(calls) != n_tasks:
+        raise AssertionError(f"[pipeline] failed {failed}, wrong {wrong}, "
+                             f"launches {launches}, calls {len(calls)}")
+
+    # one document again: the same chunks and KG
+    kind, doc, data = docs[len(PIPE_REAL)]
+    before = (col.chunk_count(), kg.stats())
+    res = ingest(pipe, kind, doc, data)
+    after = (col.chunk_count(), kg.stats())
+    log(f"  re-ingest of {doc}: {res}; chunk_count and KG stats unchanged: "
+        f"{after == before}")
+    if after != before or res.chunks != want[doc] or pipe.queue.failed:
+        raise AssertionError(f"[pipeline] re-ingest: {before} -> {after}")
+    pipe_launches = oq.prepare_vectors_into.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del emb.encode, col.store_document_vectors, kg.upsert_unstructured_page
+
+    # the documents again at max_concurrency=1 into fresh stores, with a
+    # fresh embedding cache: the same payloads and vectors, by key (all
+    # but the generated ones past the first PIPE_SERIAL_DOCS, a depth cut
+    # that keeps the whole run inside half its time limit)
+    again = docs[:len(PIPE_REAL) + PIPE_SERIAL_DOCS] \
+        + docs[len(PIPE_REAL) + PIPE_DOCS:]
+    col1 = Collection("user_pipeline_serial", Config(), device=dev)
+    kg1 = KGStore(kg.cfg, dim=kg.dim, device=dev)
+    emb1 = Embedder(emb.state, tokenizer=emb.tokenizer, max_len=emb.max_len,
+                    batch_size=emb.batch_size)
+    pipe1 = pipeline(col1, emb1, kg1, PIPE_OBJECTS + "_serial", [], 1)
+    t1 = time.perf_counter()
+    for kind, doc, data in again:
+        ingest(pipe1, kind, doc, data)
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t1
+    ka, kb = keyed_rows(col, want), keyed_rows(col1, want)
+    keys = sorted(kb)
+    same_payloads = set(keys) <= set(ka) and len(keys) == sum(
+        want[d] for _, d, _ in again) and all(
+        col.payloads.get(ka[k]) == col1.payloads.get(kb[k]) for k in keys)
+    same_vecs = same_rows(col.dense, [ka[k] for k in keys],
+                          col1.dense, [kb[k] for k in keys])
+    # KG rows by key, bit for bit; a relationship key met on several pages
+    # of a document keeps the last upsert's profile (MERGE), and which
+    # page is last depends on the workers' order: such rows may differ,
+    # at most one a re-upsert of the serial pass
+    kg_same, moved = True, 0
+    for space, table in kg1.spaces.items():
+        big = kg.spaces[space]
+        kk = sorted(table.by_key, key=repr)
+        if not all(k in big.by_key for k in kk):
+            kg_same = False
+            continue
+        ra = [big.by_key[k] for k in kk]
+        rb = [table.by_key[k] for k in kk]
+        eq = [big.payloads[a] == table.payloads[b] for a, b in zip(ra, rb)]
+        ok = [i for i, e in enumerate(eq) if e]
+        kg_same &= not ok or same_rows(big.index, [ra[i] for i in ok],
+                                       table.index, [rb[i] for i in ok])
+        if space is Space.RELATIONSHIP:
+            moved = len(eq) - len(ok)
+            kg_same &= moved <= table.tombstones
+        else:
+            kg_same &= len(ok) == len(eq)
+    log(f"  max_concurrency=1 into fresh stores, {len(again)} of the "
+        f"documents: {len(keys):,} chunks in {serial_s:.2f} s "
+        f"({len(keys) / serial_s:,.1f} chunks/s); by (document, page or "
+        f"chunk): payloads equal {same_payloads}, stored vectors "
+        f"bit-equal {same_vecs}; KG rows by key: payloads and vectors "
+        f"equal {kg_same} ({kg1.stats()}; {moved} relationship rows hold "
+        f"another page's profile, of {kg1.spaces[Space.RELATIONSHIP].tombstones}"
+        f" merged re-upserts)")
+    if not (same_payloads and same_vecs and kg_same) or pipe1.queue.failed:
+        raise AssertionError("[pipeline] max_concurrency=1 differs")
+    del col1, kg1, emb1, pipe1
+    for root in (PIPE_OBJECTS, PIPE_OBJECTS + "_serial"):
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # a tokens-wire batch of noisy chunk texts from the new documents
+    rng = np.random.default_rng(29)
+    gen = [r for (d, _), r in sorted(ka.items()) if d.startswith("gen-")]
+    rows = rng.choice(gen, TOK_BATCH, replace=False)
+    texts = []
+    for r in rows:
+        w = col.payloads.get(int(r))["text"].split()[:emb.max_len - 2]
+        flip = rng.random(len(w)) < TOK_FLIP
+        texts.append(" ".join(f"w{rng.integers(VOCAB)}" if f else x
+                              for x, f in zip(w, flip)))
+    col.hybrid_search_text_batch(texts, K)  # warm-up (the sparse rebuild)
+    with recording(ft, "scan_sheet", ft.route_launches) as scans, \
+            recording(ob, "bm25_match_rows") as matches:
+        hits = col.hybrid_search_text_batch(texts, K)
+    errs = check_recorded("[pipeline] tokens wire", scans, matches,
+                          each=False)
+    ids, am = emb.tokenizer.encode_batch(texts[:N_EVAL], emb.max_len)
+    q = emb.state.model.apply(emb.state.params,
+                              torch.from_numpy(ids).to(dev),
+                              torch.from_numpy(am).to(dev))
+    exact = exact_top_ids(col.dense, q, K, live_only=True)
+    recall = float(np.mean([np.isin(exact[i], [h.row for h in hits[i]]).mean()
+                            for i in range(N_EVAL)]))
+    found = np.mean([rows[i] in [h.row for h in hits[i]]
+                     for i in range(TOK_BATCH)])
+    log(f"  tokens wire over the new chunks, {TOK_BATCH} noisy chunk texts: "
+        f"recall@10 vs exact (live rows) on {N_EVAL} queries {recall:.4f}; "
+        f"the source chunk among the hits for {found:.1%}")
+    if recall < 0.95:
+        raise AssertionError(f"[pipeline] recall@10 {recall:.4f} < 0.95")
+    log(f"  device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"(peak {peak:.2f} GiB over the default-concurrency pass)")
+    return pipe_launches, errs
+
+
 def bf16_ulp(x: float) -> float:
     """One bf16 ulp at magnitude x (8 significant bits)."""
     import math
@@ -2753,8 +3196,8 @@ def run_local_llm(params, cfg, dev):
 def run_read_path(col, emb, ing_tokens, ing_texts, dev, card):
     """[kg], [orch], [batcher], [hybrid] and [checkpoint] over the
     [ingest] collection. Returns ((int8 scan, bf16 scan, bm25) max abs
-    errors of the recorded launches, the prep kernel's at the KG shape).
-    """
+    errors of the recorded launches, the prep kernel's at the KG shape,
+    the KGStore)."""
     t0 = time.perf_counter()
     log(f"[kg] KGStore at the API's width, one page of {KG_ENTS} entities "
         f"and {KG_RELS} relationships a document, then deduplicate ({card})")
@@ -2783,14 +3226,40 @@ def run_read_path(col, emb, ing_tokens, ing_texts, dev, card):
     errs = list(map(max, zip(errs, run_checkpoint(
         col, kg, emb, names, queries, orch_results, tok_texts, dev))))
     log(f"[checkpoint] {time.perf_counter() - t0:.1f} s")
-    return tuple(errs), prep_err_kg
+    return tuple(errs), prep_err_kg, kg
+
+
+def pipeline_phase(col, emb, kg, ing_rate, dev, card):
+    """[pipeline], logged with its time; returns `run_pipeline`'s."""
+    t0 = time.perf_counter()
+    log(f"[pipeline] IngestPipeline into the collection and the KG: the real"
+        f" fixtures, {PIPE_DOCS} generated text documents, a built PDF and "
+        f"docx, one URL ({card})")
+    out = run_pipeline(col, emb, kg, ing_rate, dev)
+    log(f"[pipeline] {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def read_path_only(dev, card) -> int:
-    """`--read-path`: [ingest], [tokens] and the read-path phases alone."""
-    col, emb, ing_tokens, ing_texts, _ = run_ingest(dev)
+    """`--read-path`: [ingest], [tokens], the read-path phases and
+    [pipeline] alone."""
+    col, emb, ing_tokens, ing_texts, _, ing_rate = run_ingest(dev)
     run_tokens(col, emb, ing_tokens)
-    run_read_path(col, emb, ing_tokens, ing_texts, dev, card)
+    _, _, kg = run_read_path(col, emb, ing_tokens, ing_texts, dev, card)
+    pipeline_phase(col, emb, kg, ing_rate, dev, card)
+    log(card)
+    return 0
+
+
+def pipeline_only(dev, card) -> int:
+    """`--pipeline`: [ingest], then [pipeline] into its collection and a
+    new KGStore at the API's width."""
+    from rag_application_tpu_torch.config import KGConfig
+    from rag_application_tpu_torch.kg.store import KGStore
+
+    col, emb, _, _, _, ing_rate = run_ingest(dev)
+    kg = KGStore(KGConfig(), dim=min(emb.dim, 2048), device=dev)
+    pipeline_phase(col, emb, kg, ing_rate, dev, card)
     log(card)
     return 0
 
@@ -2832,8 +3301,8 @@ def match_prep_only(dev, card) -> int:
 
     log("[prep-check] prepare_vectors kernel vs plain on the card")
     check_prep(dev)
-    log(f"[prep-time] prepare_vectors at the slab and document shapes "
-        f"({card})")
+    log(f"[prep-time] prepare_vectors at the slab, document and one-row "
+        f"shapes ({card})")
     time_prep(dev)
     torch.cuda.empty_cache()
     sparse, tokens, rng, t_sparse = build_sparse(dev)
@@ -2882,6 +3351,8 @@ def main() -> int:
         return match_prep_only(dev, card)
     if sys.argv[1:] == ["--read-path"]:
         return read_path_only(dev, card)
+    if sys.argv[1:] == ["--pipeline"]:
+        return pipeline_only(dev, card)
 
     from rag_application_tpu_torch.ops import quant as oq
 
@@ -2932,14 +3403,15 @@ def main() -> int:
 
     log("[prep-check] prepare_vectors kernel vs plain on the card")
     prep_err = check_prep(dev)
-    log(f"[prep-time] prepare_vectors at the slab and document shapes "
-        f"({card}); build_tables launched it {table_preps} times")
-    _, prep_t = time_prep(dev)  # the JSON line keeps the ingest's shape
+    log(f"[prep-time] prepare_vectors at the slab, document and one-row "
+        f"shapes ({card}); build_tables launched it {table_preps} times")
+    _, prep_t, *_ = time_prep(dev)  # the JSON line keeps [ingest]'s shape
     torch.cuda.empty_cache()
     log(f"[ingest] Collection.store_document_vectors(Embedder.encode(...)), "
         f"Config() + EncoderConfig() defaults, {INGEST_DOCS} documents x "
         f"{INGEST_CHUNKS} chunks ({card})")
-    col, emb, ing_tokens, ing_texts, prep_launches = run_ingest(dev)
+    col, emb, ing_tokens, ing_texts, prep_launches, ing_rate = run_ingest(
+        dev)
     log(f"[tokens] hybrid_search_text_batch over {col.dense.size:,} chunks, "
         f"{TOK_BATCHES} batches of {TOK_BATCH} ({card})")
     tok_times, tok_recall, _, tok_launches, errs = run_tokens(
@@ -2954,12 +3426,14 @@ def main() -> int:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"tokens wire")
 
-    errs, prep_err_kg = run_read_path(col, emb, ing_tokens, ing_texts, dev,
-                                      card)
-    scan_err = max(scan_err, errs[0])
-    scan_bf_err = max(scan_bf_err, errs[1])
-    bm25_err = max(bm25_err, errs[2])
-    del col, emb, ing_tokens, ing_texts
+    errs, prep_err_kg, kg = run_read_path(col, emb, ing_tokens, ing_texts,
+                                          dev, card)
+    pipe_launches, pipe_errs = pipeline_phase(col, emb, kg, ing_rate, dev,
+                                              card)
+    scan_err = max(scan_err, errs[0], pipe_errs[0])
+    scan_bf_err = max(scan_bf_err, errs[1], pipe_errs[1])
+    bm25_err = max(bm25_err, errs[2], pipe_errs[2])
+    del col, emb, kg, ing_tokens, ing_texts
     torch.cuda.empty_cache()
 
     log("[gen-check] decode_attn kernel vs plain on the card")
@@ -2999,8 +3473,9 @@ def main() -> int:
               "rag_application_tpu/ops/decode_attn.py:86", attn_launches,
               attn_err, attn_t),
         entry("prep_vectors", "rag_application_tpu_torch/csrc/prep_vectors.cu",
-              "rag_application_tpu/ops/quant.py:66", prep_launches,
-              max(prep_err, prep_err_kg), prep_t),
+              "rag_application_tpu/ops/quant.py:66",
+              prep_launches + pipe_launches, max(prep_err, prep_err_kg),
+              prep_t),
     ]}), flush=True)
     log(f"{card}")
     print(json.dumps({"ok": True, "device": {

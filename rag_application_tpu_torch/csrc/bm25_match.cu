@@ -29,6 +29,10 @@
 //   invalid query slots never enter the array, so they never match.
 // - Staged rows are padded to an odd number of 16-byte units, so each
 //   thread's 16-byte reads along its own row hit no bank conflict.
+// - Rows longer than CHUNK slots (a table holding long documents) are
+//   staged and matched CHUNK slots at a time, the sum carried across the
+//   chunks in slot order, so any width fits in shared memory and the
+//   result stays bit-equal to the plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,6 +40,9 @@
 namespace {
 
 constexpr int ROWS = 128;  // rows a block, one thread each
+// slots of a row staged at once: longer rows (long documents) are matched
+// in chunks, so shared memory stays ~68 KB whatever the table's width
+constexpr int CHUNK = 64;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -53,9 +60,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Shared layout: ROWS staged rows of `pitch` words (terms at [0, l),
-// weights at [lp, lp + l), lp = l rounded up to 4), then nq_max sorted
-// term arrays of p = 2^log2p words, then nq_max valid-term counts.
+// Shared layout: ROWS staged rows of `pitch` words (a chunk of lc slots:
+// terms at [0, lc), weights at [lc, 2 lc), lc a multiple of 4), then
+// nq_max sorted term arrays of p = 2^log2p words, then nq_max valid-term
+// counts. A row longer than lc slots is staged and matched one chunk of
+// lc slots after another, its sum carried across them in slot order.
 //
 // VEC: l % 4 == 0, 16-byte aligned rows (both strides % 4 == 0) -> 16-byte
 // copies; else 4-byte copies. LOG2P >= 0: the search's depth at compile
@@ -65,7 +74,7 @@ __global__ void __launch_bounds__(ROWS)
 bm25_match_kernel(const int* __restrict__ dt, long long dt_stride,
                   const float* __restrict__ dw, long long dw_stride,
                   const int* __restrict__ cand, long long n_table,
-                  int q_count, int pool, int l, int lp, int pitch,
+                  int q_count, int pool, int l, int lc, int pitch,
                   const int* __restrict__ q_terms,
                   const uint8_t* __restrict__ q_valid, int t, int log2p,
                   int nq_max, float* __restrict__ out) {
@@ -84,109 +93,120 @@ bm25_match_kernel(const int* __restrict__ dt, long long dt_stride,
   const int lane = threadIdx.x & 31;
   const int warp_row0 = threadIdx.x & ~31;
 
-  // 1. this thread's table row, then the warp's rows staged by cp.async:
-  // `per` copies a row, lane i of the warp's step k takes copy
-  // (32 k + i) % per of row (32 k + i) / per, advanced without a division
+  // this thread's table row
   long long src = row;
   if (cand != nullptr && live) {
     src = cand[row];
     if (src < 0 || src >= n_table) __trap();  // as an index out of range
   }
-  {
-    const int half = VEC ? l / 4 : l;  // copies of each half of a row
-    const int per = 2 * half;
-    const int dr = 32 / per, du = 32 - dr * per;
-    int r = lane / per, u = lane - r * per;
-    for (int k = 0; k < per; ++k) {
-      const long long s = __shfl_sync(0xffffffffu, src, r);
-      const int ok = __shfl_sync(0xffffffffu, live_i, r);
-      if (ok) {
-        int* dst = rows + (warp_row0 + r) * pitch;
-        if (VEC) {
-          if (u < half)
-            cp_async16(dst + 4 * u, dt + s * dt_stride + 4 * u);
-          else
-            cp_async16(dst + lp + 4 * (u - half),
-                       dw + s * dw_stride + 4 * (u - half));
-        } else {
-          if (u < half)
-            cp_async4(dst + u, dt + s * dt_stride + u);
-          else
-            cp_async4(dst + lp + (u - half), dw + s * dw_stride + (u - half));
+  const int qi = live ? static_cast<int>(row / pool) - qa : 0;
+  const int* s = sorted + qi * p;
+  const int* trow = rows + threadIdx.x * pitch;
+  const float* wrow = reinterpret_cast<const float*>(trow + lc);
+  float acc = 0.0f;
+
+  for (int c0 = 0; c0 < l; c0 += lc) {
+    const int lk = min(lc, l - c0);
+    if (c0 > 0) __syncthreads();  // every staged row of the last chunk read
+    // 1. slots [c0, c0 + lk) of the warp's rows staged by cp.async: `per`
+    // copies a row, lane i of the warp's step k takes copy (32 k + i) % per
+    // of row (32 k + i) / per, advanced without a division
+    {
+      const int half = VEC ? lk / 4 : lk;  // copies of each half of a row
+      const int per = 2 * half;
+      const int dr = 32 / per, du = 32 - dr * per;
+      int r = lane / per, u = lane - r * per;
+      for (int k = 0; k < per; ++k) {
+        const long long sr = __shfl_sync(0xffffffffu, src, r);
+        const int ok = __shfl_sync(0xffffffffu, live_i, r);
+        if (ok) {
+          int* dst = rows + (warp_row0 + r) * pitch;
+          const int* gt = dt + sr * dt_stride + c0;
+          const float* gw = dw + sr * dw_stride + c0;
+          if (VEC) {
+            if (u < half)
+              cp_async16(dst + 4 * u, gt + 4 * u);
+            else
+              cp_async16(dst + lc + 4 * (u - half), gw + 4 * (u - half));
+          } else {
+            if (u < half)
+              cp_async4(dst + u, gt + u);
+            else
+              cp_async4(dst + lc + (u - half), gw + (u - half));
+          }
+        }
+        r += dr;
+        u += du;
+        if (u >= per) {
+          u -= per;
+          ++r;
         }
       }
-      r += dr;
-      u += du;
-      if (u >= per) {
-        u -= per;
-        ++r;
-      }
     }
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
 
-  // 2. meanwhile, each query's valid terms sorted into `sorted`: a valid
-  // slot's rank is the count of valid slots before it in (term, slot)
-  // order; the largest also fills the padding up to p
-  const long long last = min(n_rows, row0 + ROWS) - 1;
-  const int nq = static_cast<int>(last / pool) - qa + 1;
-  for (int w = threadIdx.x; w < nq * t; w += ROWS) {
-    const int qi = w / t;
-    const int j = w - qi * t;
-    const int* qt = q_terms + static_cast<long long>(qa + qi) * t;
-    const uint8_t* qv = q_valid + static_cast<long long>(qa + qi) * t;
-    const int term = qt[j];
-    int rank = 0, nv = 0;
+    // 2. meanwhile (first chunk only), each query's valid terms sorted
+    // into `sorted`: a valid slot's rank is the count of valid slots
+    // before it in (term, slot) order; the largest also fills the padding
+    // up to p
+    if (c0 == 0) {
+      const long long last = min(n_rows, row0 + ROWS) - 1;
+      const int nq = static_cast<int>(last / pool) - qa + 1;
+      for (int w = threadIdx.x; w < nq * t; w += ROWS) {
+        const int wq = w / t;
+        const int j = w - wq * t;
+        const int* qt = q_terms + static_cast<long long>(qa + wq) * t;
+        const uint8_t* qv = q_valid + static_cast<long long>(qa + wq) * t;
+        const int term = qt[j];
+        int rank = 0, nv = 0;
 #pragma unroll 8
-    for (int k = 0; k < t; ++k) {
-      const bool v = qv[k] != 0;
-      const int o = qt[k];
-      nv += v;
-      rank += v & ((o < term) | ((o == term) & (k < j)));
-    }
-    if (j == 0) n_valid[qi] = nv;
-    if (qv[j] != 0) {
-      int* s = sorted + qi * p;
-      s[rank] = term;
-      if (rank == nv - 1)
-        for (int k = nv; k < p; ++k) s[k] = term;
-    }
-  }
-  cp_async_wait_all();
-  __syncthreads();
-
-  // 3. the thread's own row: binary search of each doc term, weights
-  // added in slot order
-  if (!live) return;
-  const int qi = static_cast<int>(row / pool) - qa;
-  const int* s = sorted + qi * p;
-  const bool any = n_valid[qi] > 0;
-  const int* trow = rows + threadIdx.x * pitch;
-  const float* wrow = reinterpret_cast<const float*>(trow + lp);
-  float acc = 0.0f;
-#pragma unroll 2
-  for (int c = 0; c < lp; c += 4) {
-    const int4 tv = *reinterpret_cast<const int4*>(trow + c);
-    const float4 wv = *reinterpret_cast<const float4*>(wrow + c);
-    const int tt[4] = {tv.x, tv.y, tv.z, tv.w};
-    const float ww[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (c + e >= l) break;
-      const int x = tt[e];
-      int i = 0;  // the last slot holding a term <= x (or slot 0)
-      if (LOG2P >= 0) {
-#pragma unroll
-        for (int b = LOG2P - 1; b >= 0; --b)
-          i |= s[i | (1 << b)] <= x ? 1 << b : 0;
-      } else {
-        for (int h = p >> 1; h > 0; h >>= 1) i |= s[i | h] <= x ? h : 0;
+        for (int k = 0; k < t; ++k) {
+          const bool v = qv[k] != 0;
+          const int o = qt[k];
+          nv += v;
+          rank += v & ((o < term) | ((o == term) & (k < j)));
+        }
+        if (j == 0) n_valid[wq] = nv;
+        if (qv[j] != 0) {
+          int* so = sorted + wq * p;
+          so[rank] = term;
+          if (rank == nv - 1)
+            for (int k = nv; k < p; ++k) so[k] = term;
+        }
       }
-      const bool hit = any & (s[i] == x);
-      acc = __fadd_rn(acc, hit ? ww[e] : 0.0f);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    // 3. the thread's own row: binary search of each doc term, weights
+    // added in slot order
+    if (live) {
+      const bool any = n_valid[qi] > 0;
+#pragma unroll 2
+      for (int c = 0; c < lk; c += 4) {
+        const int4 tv = *reinterpret_cast<const int4*>(trow + c);
+        const float4 wv = *reinterpret_cast<const float4*>(wrow + c);
+        const int tt[4] = {tv.x, tv.y, tv.z, tv.w};
+        const float ww[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (c + e >= lk) break;
+          const int x = tt[e];
+          int i = 0;  // the last slot holding a term <= x (or slot 0)
+          if (LOG2P >= 0) {
+#pragma unroll
+            for (int b = LOG2P - 1; b >= 0; --b)
+              i |= s[i | (1 << b)] <= x ? 1 << b : 0;
+          } else {
+            for (int h = p >> 1; h > 0; h >>= 1) i |= s[i | h] <= x ? h : 0;
+          }
+          const bool hit = any & (s[i] == x);
+          acc = __fadd_rn(acc, hit ? ww[e] : 0.0f);
+        }
+      }
     }
   }
-  out[row] = acc;
+  if (live) out[row] = acc;
 }
 
 using MatchKernel = decltype(&bm25_match_kernel<true, -1>);
@@ -228,9 +248,11 @@ extern "C" int bm25_match_launch(const int* dt, long long dt_stride,
   int log2p = 0;
   while ((1 << log2p) < t) ++log2p;
   const int p = 1 << log2p;
+  // slots staged at once: the whole row up to CHUNK slots, else chunks
   const int lp = (l + 3) / 4 * 4;
+  const int lc = lp < CHUNK ? lp : CHUNK;
   // an odd count of 16-byte units a staged row: conflict-free 16-byte reads
-  const int pitch = (2 * lp / 4) % 2 ? 2 * lp : 2 * lp + 4;
+  const int pitch = (2 * lc / 4) % 2 ? 2 * lc : 2 * lc + 4;
   // queries touched by one block of ROWS consecutive rows
   const long long nq_span = ROWS / pool + 2;
   const int nq_max = static_cast<int>(nq_span < q_count ? nq_span : q_count);
@@ -250,7 +272,7 @@ extern "C" int bm25_match_launch(const int* dt, long long dt_stride,
   }
   kernel<<<static_cast<unsigned>(blocks), ROWS, smem,
            static_cast<cudaStream_t>(stream)>>>(
-      dt, dt_stride, dw, dw_stride, cand, n_table, q_count, pool, l, lp,
+      dt, dt_stride, dw, dw_stride, cand, n_table, q_count, pool, l, lc,
       pitch, q_terms, q_valid, t, log2p, nq_max, out);
   return cudaGetLastError();
 }

@@ -1,3 +1,5 @@
 from .collection import Collection, SearchHit, VectorStore
+from .objects import NoSuchKeyError, ObjectStore
 
-__all__ = ["Collection", "SearchHit", "VectorStore"]
+__all__ = ["Collection", "NoSuchKeyError", "ObjectStore", "SearchHit",
+           "VectorStore"]

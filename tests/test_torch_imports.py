@@ -34,9 +34,12 @@ def test_port_imports_without_jax():
     # checkpoint), search (incl. params, rerank, batcher, hybrid,
     # orchestration), kg, kernels, native (incl. wordpiece_lib), models
     # (decoder, wordpiece, encoder, embedder, tokenizer, cache), store
-    # (collection), llm (router, local), utils, config, state, ...
-    assert len(mods) >= 49
+    # (collection, objects), llm (router, local), ingest (pipeline and
+    # its parsers), tools (registry, web), utils, config, state, ...
+    assert len(mods) >= 65
     assert {f"rag_application_tpu_torch.{m}" for m in (
         "index.checkpoint", "search.batcher", "search.hybrid",
         "search.orchestration", "ops.graph_hop", "kg.store",
-        "kg.checkpoint", "kg.dedup", "kg.extract")} <= mods
+        "kg.checkpoint", "kg.dedup", "kg.extract", "ingest.pipeline",
+        "ingest.queue", "ingest.pdf", "ingest.jbig2", "store.objects",
+        "tools.web")} <= mods
