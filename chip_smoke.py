@@ -112,6 +112,33 @@
    several pages of a document keeps another page's profile (its last
    upsert wins); a tokens-wire batch of 256 noisy texts of the new chunks answers with recall@10 >= 0.95,
    its scan and match launches held to plain.
+   Then `[ann]`: the IVF engine (`index/ivf.py`) at the repo's ANN
+   configuration (docs/ann.md, examples/tune_ivf.py): a 1,000,000 x 768
+   DenseIndex (matryoshka dims (128, 256)) of rows around 1,000 N(0, 1)
+   centres with 0.25 N(0, 1) noise, made on the card from a seed and
+   inserted in 100,000-row chunks; `IVFIndex.build(n_clusters=4096,
+   bucket_rows=64, iters=10)` timed by part (k-means, assignment, host
+   reorder, slab gather); batches of 256 noisy corpus rows at probes 32,
+   64, 128 and 256 (128 candidates rescored): ms a batch and recall@10
+   against the exact top-10 over the bf16 plane on 128 queries, which
+   must reach 0.95 at probes 32 and not fall by 256; 16 queries at probes
+   32 and 128 whose ids and int8-stage scores must equal, bit for bit,
+   those of the same index on CPU copies of its tables; peak memory
+   above the tables; a save and load that must answer bit for bit. Then
+   the API's path over that Collection: `build_ann()` with its defaults
+   and 64 single `ann_search(q, limit=10, ef=128)` queries, with and
+   without a `document_id` filter (p50/p90), whose hits must equal those
+   of the same index on CPU copies (scores within 1e-6). The corpus's
+   prep launches are held to plain in the index's planes. Then `[agents]` over the Collection
+   and the KGStore (a structured sheet upserted first): every tool of
+   `KnowledgeSearchToolbox` once with arguments drawn from the stores (ms
+   a tool); 64 `KnowledgeSearchAgent` turns on a STUB router whose
+   messages name a tool, with a `VectorMemoryStore` on the card and
+   reflections on, one at a time (p50/p90) and then 8 at a time, whose
+   messages must be the same; one `DeepResearchAgent` run over the
+   toolbox. The memory store's prep launches must be its inserts, the
+   first held to plain in place; every scan and match launch of the
+   phase (tools, turns, research) is held to plain.
 8. Local generation (`[gen-*]`), TinyLlama-1.1B-Chat-v1.0 at its
    published widths with random bf16 weights from a seed, int8 weights
    and int8 KV cache, `attn_kernel=True`:
@@ -160,11 +187,19 @@ for work on the serving read path.
 runs steps 1-2, `[ingest]` of step 6 and `[pipeline]` of step 7 alone,
 into `[ingest]`'s collection and a new KGStore at the API's width, for
 work on the ingest pipeline.
+
+    python3 chip_smoke.py --ann
+    python3 chip_smoke.py --agents
+
+run steps 1-2 and `[ingest]` of step 6, then `[ann]` of step 7 alone,
+or `[kg]` and `[agents]` of step 7, for work on the ANN engine or the
+agent layer.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -208,6 +243,10 @@ PREP_SLAB = 131072    # rows per insert slab (build_tables inserts 8 + 1)
 PREP_DIMS = (64, 128, 256)  # IndexConfig().matryoshka_dims
 INGEST_DOCS, INGEST_CHUNKS = 4096, 64
 EMB_LEN, EMB_BATCH = 128, 64
+INSERT_REPS = 200     # one document's DenseIndex.insert under the profiler
+# host idle at each end of a profiler window: torch.profiler missed launches
+# near the edges of short windows (0.45 of 20 inserts' in one H100 run)
+PROFILE_MARGIN_S = 0.02
 TOK_BATCHES, TOK_BATCH = 8, 256  # the API micro-batcher's default batch
 TOK_FLIP = 0.2        # share of a query's words resampled (bench.py)
 
@@ -236,6 +275,30 @@ PIPE_DOCS, PIPE_CHUNKS = 64, 16
 PIPE_SERIAL_DOCS = 16  # generated documents again at max_concurrency=1
 PIPE_URL = "https://docs.example.com/guides/retrieval"
 PIPE_OBJECTS = "build/smoke_objects"
+
+# [ann]: the repo's own ANN configuration (docs/ann.md,
+# examples/tune_ivf.py, bench.py's ANN leg): 1,000,000 x 768 rows, each
+# one of 1,000 N(0, 1) centres plus 0.25 N(0, 1), in a DenseIndex with
+# matryoshka dims (128, 256); IVF with 4,096 clusters, 64-row buckets, 10
+# k-means iterations; batches of 256 noisy corpus rows, probes 32-256 with
+# 128 candidates rescored. Then the API's path (`/admin/build-ann` calls
+# `build_ann()` with its defaults, `/api/v1/search/ann` one query with ef
+# 128) over the [ingest] collection.
+ANN_N, ANN_TRUE, ANN_NOISE, ANN_CHUNK = 1_000_000, 1000, 0.25, 100_000
+ANN_CLUSTERS, ANN_BUCKET, ANN_ITERS = 4096, 64, 10
+ANN_BATCH, ANN_PROBES, ANN_RESCORE = 256, (32, 64, 128, 256), 128
+ANN_SEED, ANN_CPU_QUERIES = 11, 16
+ANN_API_QUERIES, ANN_API_EF = 64, 128
+ANN_FILE = "build/smoke_ann/ivf.npz"
+
+# [agents]: the knowledge toolbox over the [ingest] collection and the
+# [kg] graph, KnowledgeSearchAgent turns on a STUB router whose messages
+# name a tool ("use <tool> <text>"), memories on the card, reflections on
+AGENT_TURNS, AGENT_CONCURRENCY = 64, 8
+AGENT_TOOLS = ("hybrid_search", "search_entities_semantic",
+               "search_across_spaces", "search_pages_semantic",
+               "search_relationships_semantic", "search_documents")
+AGENT_SHEET = "people.csv"
 
 
 def log(msg: str) -> None:
@@ -970,9 +1033,12 @@ def kernel_times(fn, reps: int) -> dict:
     for attempt in range(2):  # a window with no device events, once more
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # idle margins, so that no launch lies at an edge of the window
+            time.sleep(PROFILE_MARGIN_S)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
         times = {e.key: (e.self_device_time_total / 1e3 / e.count,
                          e.count / reps)
                  for e in prof.key_averages()
@@ -1497,21 +1563,39 @@ def run_ingest(dev):
         raise AssertionError(f"stored {col.chunk_count()} chunks, not {n}")
 
     # one document's DenseIndex.insert alone: the upload of its vectors
-    # and one prep launch, which writes the planes and the live flags
-    # (20 inserts under the profiler, which now and then misses a launch
-    # of a short window)
-    idx = DenseIndex(Config().index, device=dev)
+    # and one prep launch, which writes the planes and the live flags.
+    # The wrapper's count says how many prep launches an insert makes; the
+    # profiler says which kernels ran. Its counts only bound: it misses
+    # launches of a short window (0.45 of 20 inserts' in one run). The
+    # capacity holds every insert, so that no growth copies run
+    cfg = dataclasses.replace(
+        Config().index,
+        initial_capacity=(2 + 2 * INSERT_REPS) * vecs.shape[0])
+    idx = DenseIndex(cfg, device=dev)
     idx.insert(vecs)
-    times = kernel_times(lambda: idx.insert(vecs), 20)
+    inserts = []
+
+    def insert():
+        inserts.append(1)
+        idx.insert(vecs)
+
+    oq.prepare_vectors_into.launches = 0
+    times = kernel_times(insert, INSERT_REPS)
+    preps = oq.prepare_vectors_into.launches
     kernels = {k: n for k, (_, n) in times.items()
                if not k.startswith("Memcpy")}
     log(f"  DenseIndex.insert of one document ({vecs.shape[0]} x "
-        f"{vecs.shape[1]}, Config().index), device operations an insert: "
-        f"{ {k[:60]: round(n, 2) for k, (_, n) in times.items()} }")
-    if len(kernels) != 1 or round(next(iter(kernels.values()))) != 1 \
-            or "prep_vectors_" not in next(iter(kernels)):
-        raise AssertionError(f"DenseIndex.insert ran {kernels}, not one "
-                             f"prep launch")
+        f"{vecs.shape[1]}, Config().index but its capacity): {preps} prep "
+        f"launches in "
+        f"{len(inserts)} inserts (the wrapper's count); device operations "
+        f"an insert as the profiler saw them over {INSERT_REPS}: "
+        f"{ {k[:60]: round(n, 3) for k, (_, n) in times.items()} }")
+    if preps != len(inserts) or len(kernels) != 1 \
+            or "prep_vectors_" not in next(iter(kernels)) \
+            or next(iter(kernels.values())) > 1:
+        raise AssertionError(f"{len(inserts)} DenseIndex.insert calls made "
+                             f"{preps} prep launches and ran {kernels}, not "
+                             f"one prep launch each and no other kernel")
     return col, emb, tokens, texts, launches, timed / total_s
 
 
@@ -3193,6 +3277,613 @@ def run_local_llm(params, cfg, dev):
     return da.decode_attend_int8.launches
 
 
+def ann_corpus(dev):
+    """[ann]'s corpus, made on the card from a seeded generator:
+    ANN_N rows, each one of ANN_TRUE N(0, 1) centres plus ANN_NOISE
+    N(0, 1), inserted through `DenseIndex.insert` in ANN_CHUNK-row
+    chunks (examples/tune_ivf.py's corpus and index). Every insert's
+    prep launch is held against plain in the index's planes. Returns
+    (the index, the insert prep launches)."""
+    import torch
+
+    from rag_application_tpu_torch.config import IndexConfig
+    from rag_application_tpu_torch.index import dense as idense
+    from rag_application_tpu_torch.ops import quant as oq
+
+    gen = torch.Generator(device=dev).manual_seed(ANN_SEED)
+    centres = torch.randn((ANN_TRUE, DIM), generator=gen, device=dev)
+    dense = idense.DenseIndex(IndexConfig(
+        dim=DIM, matryoshka_dims=(128, 256), initial_capacity=1 << 20),
+        device=dev)
+    oq.prepare_vectors_into.launches = 0
+    with recording(idense, "prepare_vectors_into") as preps:
+        for s in range(0, ANN_N, ANN_CHUNK):
+            m = min(ANN_CHUNK, ANN_N - s)
+            a = torch.randint(0, ANN_TRUE, (m,), generator=gen, device=dev)
+            dense.insert(centres[a] + ANN_NOISE * torch.randn(
+                (m, DIM), generator=gen, device=dev))
+    launches = oq.prepare_vectors_into.launches
+    torch.cuda.synchronize()
+    shapes = check_preps("[ann] corpus inserts", preps)
+    if len(preps) != launches or shapes != {
+            (ANN_CHUNK, (128, 256)): -(-ANN_N // ANN_CHUNK)}:
+        raise AssertionError(f"[ann] {launches} prep launches, "
+                             f"{len(preps)} recorded, by shape {shapes}")
+    return dense, launches
+
+
+@contextlib.contextmanager
+def build_split(log_):
+    """While the block runs, `index/ivf.py`'s k-means, assignment and
+    slab gather run synchronized and append (name, s) to ``log_``."""
+    import torch
+
+    from rag_application_tpu_torch.index import ivf as tivf
+
+    real = {n: getattr(tivf, n) for n in ("_kmeans", "_assign",
+                                           "_gather_buckets")}
+
+    def timed_(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            log_.append((name, time.perf_counter() - t0))
+            return out
+        return run
+
+    for n, fn in real.items():
+        setattr(tivf, n, timed_(n, fn))
+    try:
+        yield log_
+    finally:
+        for n, fn in real.items():
+            setattr(tivf, n, fn)
+
+
+def cpu_ivf(ivf):
+    """The same IVF index over CPU copies of its tables and its dense
+    index's planes."""
+    import copy
+
+    import torch
+
+    from rag_application_tpu_torch.index.dense import DenseIndex
+    from rag_application_tpu_torch.index.ivf import IVFIndex
+
+    dense = copy.copy(ivf.dense)
+    dense.device = torch.device("cpu")
+    for name in DenseIndex._PLANES:
+        t = getattr(dense, name)
+        setattr(dense, name, None if t is None else t.cpu())
+    out = IVFIndex(dense, ivf.centroids.cpu(), ivf.bucket_cluster.cpu(),
+                   ivf.bucket_tbl.cpu(), ivf.bucket_rowids.cpu(),
+                   built_n=ivf.built_n, bucket_rows=ivf.bucket_rows,
+                   rebuild_threshold=ivf.rebuild_threshold)
+    out._build_kw = dict(ivf._build_kw)
+    return out
+
+
+def bits_equal(a, b) -> bool:
+    """Equal tensors, bit for bit (floats by their bits), on the CPU."""
+    import torch
+
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def rescored_agree(ids_a, vals_a, ids_b, vals_b, tol) -> bool:
+    """Rescored top-k lists of one query from two devices: scores within
+    ``tol`` and ids equal but where two candidates' scores are within
+    2 ``tol`` (the card and the CPU sum an f32 dot in different
+    orders)."""
+    ids_a, ids_b = list(ids_a), list(ids_b)
+    if len(ids_a) != len(ids_b) or any(
+            abs(x - y) > tol for x, y in zip(vals_a, vals_b)):
+        return False
+    for p, (x, y) in enumerate(zip(ids_a, ids_b)):
+        if x != y:
+            other = (vals_b[ids_b.index(x)] if x in ids_b else vals_b[-1])
+            if abs(other - vals_b[p]) > 2 * tol:
+                return False
+    return True
+
+
+def run_ann(col, emb, tokens, dev):
+    """[ann]: the IVF engine at the repo's ANN configuration, then
+    through the API's path on the [ingest] collection. Returns the prep
+    launches of the corpus's inserts."""
+    import os
+
+    import torch
+
+    from rag_application_tpu_torch.index.ivf import IVFIndex, IVFSearchParams
+
+    t0 = time.perf_counter()
+    dense, preps = ann_corpus(dev)
+    torch.cuda.synchronize()
+    log(f"  corpus {dense.size:,} x {DIM} ({ANN_TRUE} centres, noise "
+        f"{ANN_NOISE}) made and inserted in {time.perf_counter() - t0:.3f} s, "
+        f"{preps} prep launches ({ANN_N // ANN_CHUNK} inserts), each "
+        f"bit-equal to plain")
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    split = []
+    with build_split(split):
+        t0 = time.perf_counter()
+        ivf = IVFIndex.build(dense, n_clusters=ANN_CLUSTERS,
+                             bucket_rows=ANN_BUCKET, iters=ANN_ITERS)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    parts = dict(split)
+    parts["host (sample, reorder)"] = build_s - sum(parts.values())
+    build_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    tables = (torch.cuda.memory_allocated() - base) / 2**30
+    log(f"  IVFIndex.build(n_clusters={ANN_CLUSTERS}, bucket_rows="
+        f"{ANN_BUCKET}, iters={ANN_ITERS}): {build_s:.2f} s "
+        f"({ {k: round(v, 3) for k, v in parts.items()} } s); "
+        f"{ivf.bucket_tbl.shape[0]:,} buckets of {ANN_BUCKET} rows "
+        f"({ivf.bucket_tbl.numel() / 2**30:.2f} GiB slab table), peak "
+        f"{build_peak:.2f} GiB above the dense index")
+    rid = ivf.bucket_rowids.cpu().numpy()
+    live = rid[rid >= 0]
+    if len(live) != dense.size or len(np.unique(live)) != dense.size:
+        raise AssertionError("[ann] the buckets do not cover every row once")
+
+    rng = np.random.default_rng(ANN_SEED)
+    rows = torch.from_numpy(rng.choice(dense.size, ANN_BATCH,
+                                       replace=False)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(ANN_SEED + 1)
+    q = dense.vecs[rows].float() + 0.05 * torch.randn(
+        (ANN_BATCH, DIM), generator=gen, device=dev)
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    exact = exact_top_ids(dense, q[:N_EVAL], K)
+
+    torch.cuda.reset_peak_memory_stats()
+    sweep = {}
+    for probes in ANN_PROBES:
+        params = IVFSearchParams(probes=probes, rescore_limit=ANN_RESCORE)
+        _, ids = ivf.search(q, K, params=params)
+        ids = ids.cpu().numpy()
+        recall = float(np.mean([np.isin(exact[i], ids[i]).mean()
+                                for i in range(N_EVAL)]))
+        ms = cuda_ms(lambda: ivf.search(q, K, params=params), reps=5)
+        sweep[probes] = (ms, recall)
+        log(f"  probes {probes:3d}: {ms:8.3f} ms per batch of {ANN_BATCH} "
+            f"(CUDA events, warm) -> {ANN_BATCH / ms * 1e3:,.0f} queries/s; "
+            f"recall@10 vs exact (bf16 plane) on {N_EVAL} queries "
+            f"{recall:.4f}")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30 - tables
+    params = IVFSearchParams(probes=128, rescore_limit=ANN_RESCORE)
+    times = kernel_times(lambda: ivf.search(q, K, params=params), 3)
+    busy = sum(ms * n for ms, n in times.values())
+    log(f"[profile] one batch at probes 128: device busy {busy:.3f} ms of "
+        f"{sweep[128][0]:.3f} ms; by kernel (ms a batch, launches):")
+    for name, (ms, n) in sorted(times.items(),
+                                key=lambda t: -t[1][0] * t[1][1])[:6]:
+        log(f"  {ms * n:9.3f} ms  x{n:<5.1f} {name[:90]}")
+    log(f"  peak device memory above the tables during the sweep "
+        f"{peak:.2f} GiB (tables: the slab table, ids and centroids "
+        f"{tables:.2f} GiB, beside the dense index)")
+    low, high = sweep[ANN_PROBES[0]][1], sweep[ANN_PROBES[-1]][1]
+    if low < 0.95 or high < low:
+        raise AssertionError(f"[ann] recall@10 {sweep}")
+
+    # the card against the same index on CPU copies of its tables: ids
+    # and int8-stage scores bit for bit
+    t0 = time.perf_counter()
+    cpu = cpu_ivf(ivf)
+    qs = q[:ANN_CPU_QUERIES]
+    for probes in (32, 128):
+        params = IVFSearchParams(probes=probes, rescore=False)
+        dv, di = ivf.search(qs, K, params=params)
+        cv, ci = cpu.search(qs.cpu(), K, params=params)
+        if not (bits_equal(di, ci) and bits_equal(dv, cv)):
+            raise AssertionError(f"[ann] probes {probes}: the card's ids or "
+                                 f"int8-stage scores differ from the CPU's")
+    log(f"  {ANN_CPU_QUERIES} queries at probes 32 and 128, int8 stage: ids "
+        f"and scores bit-equal to the same index on CPU copies "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del cpu
+
+    # a save and a load answer bit for bit
+    os.makedirs(os.path.dirname(ANN_FILE), exist_ok=True)
+    ivf.save(ANN_FILE)
+    restored = IVFIndex.load(ANN_FILE, dense)
+    params = IVFSearchParams(probes=64)
+    a, b = ivf.search(q, K, params=params), restored.search(q, K,
+                                                            params=params)
+    size = os.path.getsize(ANN_FILE)
+    os.remove(ANN_FILE)
+    os.rmdir(os.path.dirname(ANN_FILE))
+    if not (bits_equal(a[0], b[0]) and bits_equal(a[1], b[1])):
+        raise AssertionError("[ann] the loaded index answers otherwise")
+    log(f"  save ({size / 2**20:.1f} MiB) and load: {ANN_BATCH} queries at "
+        f"probes 64 answered bit for bit")
+    del ivf, restored, dense, q, a, b
+    torch.cuda.empty_cache()
+
+    # the API's path: /admin/build-ann, then /api/v1/search/ann
+    t0 = time.perf_counter()
+    col.build_ann()
+    torch.cuda.synchronize()
+    api_build = time.perf_counter() - t0
+    log(f"  Collection.build_ann() over {col.dense.size:,} chunks "
+        f"({col.chunk_count():,} live): {api_build:.2f} s, "
+        f"{col.ann.bucket_tbl.shape[0]:,} buckets, "
+        f"{col.ann.centroids.shape[0]} clusters")
+    live_rows = np.nonzero(col.dense.live[:col.dense.size].cpu().numpy())[0]
+    src = rng.choice(live_rows, ANN_API_QUERIES, replace=False)
+    texts = noisy_texts(tokens, src % len(tokens), 961)
+    vecs = emb.encode(texts)
+    docs = [col.payloads.get(int(r))["document_id"] for r in src]
+    exact = exact_top_ids(col.dense, torch.from_numpy(vecs).to(dev), K,
+                          live_only=True)
+    cpu = cpu_ivf(col.ann)
+    # rescored scores within 1e-6, the CPU parity tests' tolerance (the
+    # worst case of two f32 dots summed in other orders, 2 d 2^-24, is
+    # 9.16e-5; the gap read is logged)
+    tol = 1e-6
+    gap = 0.0  # the largest card-vs-CPU gap between two scores in place
+    for filtered in (False, True):
+        ms, hits = [], []
+        for v, doc in zip(vecs, docs):
+            kw = {"document_id": doc} if filtered else {}
+            t1 = time.perf_counter()
+            hits.append(col.ann_search(v, limit=K, ef=ANN_API_EF, **kw))
+            ms.append((time.perf_counter() - t1) * 1e3)
+        found = np.mean([int(r) in [h.row for h in hs]
+                         for r, hs in zip(src, hits)])
+        empty = sum(not hs for hs in hits)
+        recall = "" if filtered else (
+            "; recall@10 vs exact (live rows) " + format(np.mean(
+                [np.isin(exact[i], [h.row for h in hs]).mean()
+                 for i, hs in enumerate(hits)]), ".4f"))
+        log(f"  {ANN_API_QUERIES} single queries, ann_search(limit={K}, "
+            f"ef={ANN_API_EF}){' with a document_id filter' * filtered}: "
+            f"p50 {np.percentile(ms, 50):.2f} ms, p90 "
+            f"{np.percentile(ms, 90):.2f} ms (host clock, hits joined to "
+            f"payloads); the source chunk among the hits for {found:.1%}"
+            f"{recall}; {empty} with no hit")
+        for v, doc, hs in zip(vecs, docs, hits):
+            mask = (col.payloads.filter_mask(col.dense.capacity,
+                                             document_id=doc)
+                    if filtered else None)
+            cv, ci = cpu.search(v[None, :], K, params=IVFSearchParams(
+                probes=ANN_API_EF), filter_mask=mask)
+            keep = np.isfinite(cv[0].numpy())
+            want_ids = [int(i) for i in ci[0].numpy()[keep]]
+            want_vals = [float(x) for x in cv[0].numpy()[keep]]
+            got = ([h.row for h in hs], [h.score for h in hs])
+            # a filtered query finds nothing when no probed bucket holds
+            # a row of its document (the filter applies after the probe)
+            if (not hs and not filtered) or not rescored_agree(
+                    *got, want_ids, want_vals, tol):
+                raise AssertionError(f"[ann] ann_search hits differ from "
+                                     f"the CPU run's (filtered {filtered}): "
+                                     f"card {got}, CPU {want_ids} "
+                                     f"{want_vals}")
+            gap = max([gap] + [abs(x - y) for x, y in zip(got[1], want_vals)])
+            if filtered and any(h.payload["document_id"] != doc for h in hs):
+                raise AssertionError("[ann] a filtered hit from another "
+                                     "document")
+    log(f"  every hit list equal to the same index's on CPU copies (rows "
+        f"but at near-ties, scores within {tol:.3g}); largest score gap "
+        f"{gap:.3g}")
+    del cpu
+    col.ann = None
+    torch.cuda.empty_cache()
+    return preps
+
+
+def agent_sheet(kg, emb):
+    """A structured sheet in the KG (a CSV's upsert), so the table tools
+    have columns and values to read."""
+    cities = ["lyon", "oslo", "quito", "perth", "kyoto", "lagos", "bern",
+              "lima"]
+    columns = [{"name": "name", "profile": "person names"},
+               {"name": "city", "profile": "city of residence"},
+               {"name": "team", "profile": "team the person works in"}]
+    rows = [{"name": f"person {i}", "city": cities[i % len(cities)],
+             "team": f"team {i % 3}"} for i in range(16)]
+    kg.upsert_document(AGENT_SHEET, {"title": "People", "kind": "csv",
+                                     "rows": len(rows)})
+    kg.upsert_structured_sheet(
+        AGENT_SHEET, 1, sheet_name="people", summary="a table of people",
+        summary_embedding=emb.encode(["a table of people"])[0][:kg.dim],
+        columns=columns,
+        column_embeddings=emb.encode([c["profile"] for c in columns])[
+            :, :kg.dim],
+        rows=rows)
+
+
+def agent_tool_args(col, kg, texts):
+    """Real arguments for each tool of the toolbox, drawn from the
+    stores: a page of [kg], an entity of it with a neighbour, a stored
+    chunk, the sheet of `agent_sheet`."""
+    from rag_application_tpu_torch.kg.store import Space
+
+    table = kg.spaces[Space.ENTITY]
+    doc = next(d for d in kg.documents if kg.get_entities(d))
+    ent = next(e for e in kg.get_entities(doc)
+               if any(kg.entity_edges.get(r)
+                      for _, r in table.rows_for_id(e["id"])))
+    row = next(r for _, r in table.rows_for_id(ent["id"])
+               if kg.entity_edges.get(r))
+    other = table.get(kg.entity_edges[row][0][1])["id"]
+    chunk_row = int(np.nonzero(col.dense.live.cpu().numpy())[0][100])
+    chunk = col.payloads.get(chunk_row)
+    query = texts[0]
+    return {
+        "search_documents": {"query": doc},
+        "list_documents": {},
+        "get_document_metadata": {"document_id": AGENT_SHEET},
+        "list_document_pages": {"document_id": doc},
+        "get_page_content": {"document_id": doc, "page_number": 1},
+        "search_pages_semantic": {"query": query},
+        "search_entities_semantic": {"query": ent["text"]},
+        "search_relationships_semantic": {"query": f"{ent['text']} and "
+                                                   f"{other}"},
+        "search_columns_semantic": {"query": "city of residence"},
+        "search_across_spaces": {"query": ent["text"], "k": 10},
+        "hybrid_search": {"query": query},
+        "get_entity_by_id": {"entity_id": ent["id"]},
+        "find_entities_by_type": {"entity_type": ent["entity_type"]},
+        "get_entity_context": {"entity_id": ent["id"]},
+        "traverse_entity_graph": {"entity_id": ent["id"], "hops": 2,
+                                  "query": query},
+        "path_between_entities": {"source_id": ent["id"],
+                                  "target_id": other},
+        "get_relationships_between": {"source_id": ent["id"],
+                                      "target_id": other},
+        "get_column_values": {"column_name": "city"},
+        "search_row_values": {"value": "lyon"},
+        "get_chunk_neighbors": {"document_id": chunk["document_id"],
+                                "chunk_index": chunk["chunk_index"]},
+        "structured_query": {"operation": "stats"},
+    }
+
+
+def run_agents(col, emb, kg, tokens, dev):
+    """[agents]: every tool of the knowledge toolbox once, AGENT_TURNS
+    `KnowledgeSearchAgent` turns on a STUB router (one at a time, then
+    AGENT_CONCURRENCY at a time), a `DeepResearchAgent` run, each over
+    the [ingest] collection and the [kg] graph with memories on the
+    card. Returns ((int8 scan, bf16 scan, bm25) max abs errors of the
+    recorded launches, the phase's launches by kernel entry, its prep
+    launches)."""
+    import asyncio
+
+    import torch
+
+    from rag_application_tpu_torch.agents.chat_agent import \
+        KnowledgeSearchAgent
+    from rag_application_tpu_torch.agents.deep_research import \
+        DeepResearchAgent
+    from rag_application_tpu_torch.agents.memory import (ThreadCheckpointer,
+                                                         VectorMemoryStore)
+    from rag_application_tpu_torch.index import dense as idense
+    from rag_application_tpu_torch.llm.router import LLMRouter, Provider
+    from rag_application_tpu_torch.ops import bm25 as ob
+    from rag_application_tpu_torch.ops import fused_topk as ft
+    from rag_application_tpu_torch.ops import quant as oq
+    from rag_application_tpu_torch.tools.knowledge import \
+        KnowledgeSearchToolbox
+
+    agent_sheet(kg, emb)
+    toolbox = KnowledgeSearchToolbox(col, kg, emb).build()
+    rng = np.random.default_rng(73)
+    live = np.nonzero(col.dense.live[:col.dense.size].cpu().numpy())[0]
+    texts = noisy_texts(tokens, rng.choice(live, AGENT_TURNS + 1,
+                                           replace=False) % len(tokens), 977)
+    args = agent_tool_args(col, kg, texts)
+    if sorted(args) != toolbox.names():
+        raise AssertionError(f"[agents] tools {toolbox.names()}")
+
+    # every scan and match launch of the phase (tools, turns one at a
+    # time, research, turns run concurrently) is recorded and held against
+    # plain; while recording, the wrappers count on the recorders
+    with recording(ft, "scan_sheet") as scans, \
+            recording(ob, "bm25_match_rows") as matches:
+        reset_scan_counts(ft)
+        ob.bm25_match_rows.launches = 0
+        oq.prepare_vectors_into.launches = 0
+        tool_ms = {}
+        for name in toolbox.names():
+            ms = []
+            for _ in range(2):  # the first call may build a cached table
+                t0 = time.perf_counter()
+                out = asyncio.run(toolbox.get(name).call(**args[name]))
+                ms.append(round((time.perf_counter() - t0) * 1e3, 2))
+            tool_ms[name] = ms
+            if not out or (isinstance(out, dict) and "error" in out):
+                raise AssertionError(f"[agents] {name}({args[name]}) -> {out}")
+            if name == "path_between_entities" and not out["reachable"]:
+                raise AssertionError(f"[agents] {name} -> {out}")
+        log(f"  every tool of KnowledgeSearchToolbox(col, kg, emb), real "
+            f"arguments, ms of a first and a second call (host clock): "
+            f"{tool_ms}")
+
+        store = VectorMemoryStore(emb)
+        if store.device != col.device:
+            raise AssertionError(f"[agents] memories on {store.device}")
+        agent = KnowledgeSearchAgent(LLMRouter(Provider.STUB), toolbox=toolbox,
+                                     memory_store=store, reflections=True,
+                                     user_id="smoke",
+                                     checkpointer=ThreadCheckpointer())
+        inputs = [f"use {AGENT_TOOLS[i % len(AGENT_TOOLS)]} {texts[i + 1]}"
+                  for i in range(AGENT_TURNS)]
+        puts = []
+        real_put, real_insert = store.put, idense.DenseIndex.insert
+
+        def put(*a, **k):
+            puts.append(a[1])
+            return real_put(*a, **k)
+
+        inserted = []
+
+        def insert(self, x):
+            inserted.append(len(x))
+            return real_insert(self, x)
+
+        async def one(i, tag):
+            t0 = time.perf_counter()
+            out = await agent.ainvoke(inputs[i], thread_id=f"{tag}-{i}")
+            return out, (time.perf_counter() - t0) * 1e3
+
+        async def in_turn():
+            # the first turn's memory write (its reflection drained at once,
+            # before a later put tombstones its row) is held against plain
+            with recording(idense, "prepare_vectors_into") as preps:
+                res = [await one(0, "seq")]
+                await agent.drain_reflections()
+            first.update(check_preps("[agents] the first turn's memory put",
+                                     preps))
+            for i in range(1, AGENT_TURNS):
+                res.append(await one(i, "seq"))
+            await agent.drain_reflections()
+            return res
+
+        async def together():
+            sem = asyncio.Semaphore(AGENT_CONCURRENCY)
+
+            async def limited(i):
+                async with sem:
+                    return await one(i, "par")
+            res = await asyncio.gather(*(limited(i)
+                                         for i in range(AGENT_TURNS)))
+            await agent.drain_reflections()
+            return res
+
+        store.put = put
+        idense.DenseIndex.insert = insert
+        first = {}
+        try:
+            t0 = time.perf_counter()
+            seq = asyncio.run(in_turn())
+            seq_s = time.perf_counter() - t0
+        finally:
+            idense.DenseIndex.insert = real_insert
+        mem_preps = oq.prepare_vectors_into.launches
+        turn_ms = np.array([m for _, m in seq])
+        calls = [sum(len(m.get("tool_calls") or []) for m in o["messages"])
+                 for o, _ in seq]
+        log(f"  {AGENT_TURNS} KnowledgeSearchAgent turns one at a time (STUB "
+            f"router, 'use <tool> <text>', reflections on): p50 "
+            f"{np.percentile(turn_ms, 50):.1f} ms, p90 "
+            f"{np.percentile(turn_ms, 90):.1f} ms a turn, {seq_s:.2f} s in all; "
+            f"{sum(calls)} tool calls ({calls[0]} a turn); memory puts "
+            f"{len(puts)}, DenseIndex inserts {len(inserted)} "
+            f"({sum(inserted)} rows), prep launches {mem_preps}")
+        if (mem_preps != len(inserted) or len(puts) < AGENT_TURNS
+                or first != {(1, ()): 1} or sum(inserted) < len(puts)):
+            raise AssertionError(f"[agents] prep launches {mem_preps}, inserts "
+                                 f"{len(inserted)}, puts {len(puts)}")
+        for (o, _), text in zip(seq, inputs):
+            tools_msgs = [m for m in o["messages"] if m["role"] == "tool"]
+            if not tools_msgs or not o["content"].startswith("[stub]") or any(
+                    m["content"].startswith('{"error"') for m in tools_msgs):
+                raise AssertionError(f"[agents] turn {text[:40]!r}: "
+                                     f"{o['messages'][-1]}")
+
+        # a DeepResearchAgent run over the real toolbox, scripted as
+        # tests/test_deep_research.py scripts it
+        research = LLMRouter(Provider.STUB)
+        rounds = {"n": 0}
+
+        def gap(_):
+            rounds["n"] += 1
+            return json.dumps({"gap_exists": rounds["n"] <= 2,
+                               "missing": "details about the topic"})
+
+        research.stub.on(r"research contract", lambda _: json.dumps({
+            "needs_clarification": False,
+            "contract": ["what the corpus says", "who is named"]}))
+        research.stub.on(r"Does a gap remain", gap)
+        research.stub.on(r"search subqueries", lambda _: json.dumps(
+            {"subqueries": [texts[0], args["search_entities_semantic"]["query"]]}))
+        research.stub.on(r"Write a dense factual finding",
+                         lambda p: "finding: " + p[10:90])
+        research.stub.on(r"final research report", lambda p: "REPORT " + p[:60])
+        rstore = VectorMemoryStore(emb)
+        before = scan_counts(ft)
+        t0 = time.perf_counter()
+        out = asyncio.run(DeepResearchAgent(
+            research, toolbox=toolbox, research_store=rstore,
+            max_iterations=3).ainvoke("what does the corpus say",
+                                      thread_id="research"))
+        research_s = time.perf_counter() - t0
+        findings = rstore.list(("research", "research"))
+        log(f"  DeepResearchAgent: {out['status']}, {out['iterations']} "
+            f"iterations, trace {out['trace']}, {len(findings)} findings in "
+            f"{research_s * 1e3:.1f} ms")
+        if (out["status"] != "complete" or not out["content"].startswith("REPORT")
+                or out["trace"][-1]["open_gaps"] or not findings
+                or scan_counts(ft) == before):
+            raise AssertionError(f"[agents] research {out}")
+        launches = {**scan_counts(ft),
+                    "bm25_match": ob.bm25_match_rows.launches}
+        preps_all = oq.prepare_vectors_into.launches
+        recorded = (len(scans), len(matches))
+        if (ft.route_launches["fused_scan"] or not all(launches.values())
+                or recorded[0] < launches["fused_scan"]
+                + launches["fused_scan_bf16"]
+                or recorded[1] < launches["bm25_match"]):
+            raise AssertionError(f"[agents] launches {launches}, by kernel "
+                                 f"{ft.route_launches}, recorded calls "
+                                 f"{recorded}")
+
+        # the turns again, AGENT_CONCURRENCY at a time
+        t0 = time.perf_counter()
+        par = asyncio.run(together())
+        par_s = time.perf_counter() - t0
+        store.put = real_put
+    par_ms = np.array([m for _, m in par])
+    log(f"  the {AGENT_TURNS} turns {AGENT_CONCURRENCY} at a time "
+        f"(asyncio.gather): p50 {np.percentile(par_ms, 50):.1f} ms, p90 "
+        f"{np.percentile(par_ms, 90):.1f} ms a turn, {par_s:.2f} s in all "
+        f"({seq_s:.2f} s one at a time)")
+    for (a, _), (b, _) in zip(seq, par):
+        if a["messages"] != b["messages"]:
+            raise AssertionError("[agents] a turn run concurrently differs "
+                                 "from the same turn run alone")
+    errs = check_recorded("[agents] tools, turns and research",
+                          routed(scans), matches, each=False)
+    log(f"  launches (tools, turns one at a time, research) {launches}, "
+        f"from {recorded[0]} scan and {recorded[1]} match calls, each held "
+        f"to plain above with the concurrent turns' ({len(scans)} scans, "
+        f"{len(matches)} matches in all); prep {preps_all} (memory and "
+        f"research puts)")
+    return errs, launches, preps_all
+
+
+def ann_phase(col, emb, tokens, dev, card):
+    """[ann], logged with its time; returns `run_ann`'s."""
+    t0 = time.perf_counter()
+    log(f"[ann] IVFIndex at the repo's ANN configuration ({ANN_N:,} x {DIM}, "
+        f"C {ANN_CLUSTERS}), then Collection.build_ann/ann_search over the "
+        f"[ingest] collection ({card})")
+    out = run_ann(col, emb, tokens, dev)
+    log(f"[ann] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def agents_phase(col, emb, kg, tokens, dev, card):
+    """[agents], logged with its time; returns `run_agents`'s."""
+    t0 = time.perf_counter()
+    log(f"[agents] the knowledge toolbox, {AGENT_TURNS} KnowledgeSearchAgent "
+        f"turns and a DeepResearchAgent run over the collection and the KG "
+        f"({card})")
+    out = run_agents(col, emb, kg, tokens, dev)
+    log(f"[agents] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def run_read_path(col, emb, ing_tokens, ing_texts, dev, card):
     """[kg], [orch], [batcher], [hybrid] and [checkpoint] over the
     [ingest] collection. Returns ((int8 scan, bf16 scan, bm25) max abs
@@ -3260,6 +3951,26 @@ def pipeline_only(dev, card) -> int:
     col, emb, _, _, _, ing_rate = run_ingest(dev)
     kg = KGStore(KGConfig(), dim=min(emb.dim, 2048), device=dev)
     pipeline_phase(col, emb, kg, ing_rate, dev, card)
+    log(card)
+    return 0
+
+
+def ann_only(dev, card) -> int:
+    """`--ann`: [ingest], then [ann] over its collection."""
+    col, emb, ing_tokens, _, _, _ = run_ingest(dev)
+    ann_phase(col, emb, ing_tokens, dev, card)
+    log(card)
+    return 0
+
+
+def agents_only(dev, card) -> int:
+    """`--agents`: [ingest] and [kg], then [agents] over their stores."""
+    col, emb, ing_tokens, ing_texts, _, _ = run_ingest(dev)
+    t0 = time.perf_counter()
+    log(f"[kg] KGStore at the API's width ({card})")
+    kg, *_ = run_kg(col, emb, ing_texts, dev)
+    log(f"[kg] {time.perf_counter() - t0:.1f} s")
+    agents_phase(col, emb, kg, ing_tokens, dev, card)
     log(card)
     return 0
 
@@ -3353,6 +4064,10 @@ def main() -> int:
         return read_path_only(dev, card)
     if sys.argv[1:] == ["--pipeline"]:
         return pipeline_only(dev, card)
+    if sys.argv[1:] == ["--ann"]:
+        return ann_only(dev, card)
+    if sys.argv[1:] == ["--agents"]:
+        return agents_only(dev, card)
 
     from rag_application_tpu_torch.ops import quant as oq
 
@@ -3430,9 +4145,12 @@ def main() -> int:
                                           dev, card)
     pipe_launches, pipe_errs = pipeline_phase(col, emb, kg, ing_rate, dev,
                                               card)
-    scan_err = max(scan_err, errs[0], pipe_errs[0])
-    scan_bf_err = max(scan_bf_err, errs[1], pipe_errs[1])
-    bm25_err = max(bm25_err, errs[2], pipe_errs[2])
+    ann_preps = ann_phase(col, emb, ing_tokens, dev, card)
+    agent_errs, agent_launches, agent_preps = agents_phase(
+        col, emb, kg, ing_tokens, dev, card)
+    scan_err = max(scan_err, errs[0], pipe_errs[0], agent_errs[0])
+    scan_bf_err = max(scan_bf_err, errs[1], pipe_errs[1], agent_errs[1])
+    bm25_err = max(bm25_err, errs[2], pipe_errs[2], agent_errs[2])
     del col, emb, kg, ing_tokens, ing_texts
     torch.cuda.empty_cache()
 
@@ -3461,21 +4179,24 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("fused_scan", "rag_application_tpu_torch/csrc/fused_scan.cu",
               "rag_application_tpu/ops/fused_topk.py:61",
-              launches["fused_scan"], scan_err, scan_t),
+              launches["fused_scan"] + agent_launches["fused_scan"],
+              scan_err, scan_t),
         entry("fused_scan_bf16",
               "rag_application_tpu_torch/csrc/fused_scan_bf16.cu",
               "rag_application_tpu/ops/fused_topk.py:61",
-              launches["fused_scan_bf16"], scan_bf_err, scan_bf_t),
+              launches["fused_scan_bf16"] + agent_launches["fused_scan_bf16"],
+              scan_bf_err, scan_bf_t),
         entry("bm25_match", "rag_application_tpu_torch/csrc/bm25_match.cu",
               "rag_application_tpu/ops/bm25.py:45",
-              launches["bm25_match"], bm25_err, bm25_t),
+              launches["bm25_match"] + agent_launches["bm25_match"],
+              bm25_err, bm25_t),
         entry("decode_attn", "rag_application_tpu_torch/csrc/decode_attn.cu",
               "rag_application_tpu/ops/decode_attn.py:86", attn_launches,
               attn_err, attn_t),
         entry("prep_vectors", "rag_application_tpu_torch/csrc/prep_vectors.cu",
               "rag_application_tpu/ops/quant.py:66",
-              prep_launches + pipe_launches, max(prep_err, prep_err_kg),
-              prep_t),
+              prep_launches + pipe_launches + ann_preps + agent_preps,
+              max(prep_err, prep_err_kg), prep_t),
     ]}), flush=True)
     log(f"{card}")
     print(json.dumps({"ok": True, "device": {

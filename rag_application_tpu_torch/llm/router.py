@@ -1,9 +1,7 @@
 """LLM provider router.
 
-Copy of `rag_application_tpu/llm/router.py`, except that
-`Provider.BEDROCK` raises `NotImplementedError` until `llm/bedrock.py`
-is ported, and `Provider.LOCAL` serves the port's
-`llm/local.py::LocalLLM`.
+Copy of `rag_application_tpu/llm/router.py`, with `Provider.LOCAL`
+serving the port's `llm/local.py::LocalLLM`.
 
 Parity surfaces:
   * v1 `ModelRouter` dispatching to OpenAI/Ollama/HF by Provider enum with
@@ -234,9 +232,11 @@ class LLMRouter:
                              "OpenAI deployment endpoint)")
         self.max_retries = max_retries
         self.timeout = timeout
+        self._bedrock = None
         if self.provider == Provider.BEDROCK:
-            raise NotImplementedError(
-                "Provider.BEDROCK is not ported yet (llm/bedrock.py)")
+            from .bedrock import BedrockClient
+
+            self._bedrock = BedrockClient(model=model, timeout=timeout)
 
     # ------------------------------------------------------------- plumbing
 
@@ -299,6 +299,21 @@ class LLMRouter:
             return await self.local.chat(messages,
                                          response_schema=response_schema,
                                          **self._filter_params(params))
+        if self.provider == Provider.BEDROCK:
+            from .bedrock import from_converse
+
+            msgs = list(messages)
+            if response_schema is not None:
+                # Converse has no response_format; instruct instead — the
+                # generate_structured retry loop validates the JSON
+                msgs.append(ChatMessage(
+                    "user", "Respond with ONLY valid JSON matching this "
+                            f"schema: {json.dumps(response_schema)}"))
+            data = await self._bedrock.converse(
+                msgs, tools=tools, **self._filter_params(params))
+            content, tool_calls, usage = from_converse(data)
+            return LLMResponse(content=content, tool_calls=tool_calls,
+                               usage=usage, raw=data)
         payload: Dict[str, Any] = {
             "model": self.model,
             "messages": [m.to_dict() for m in messages],
@@ -394,6 +409,16 @@ class LLMRouter:
             async for chunk in self.local.stream(
                     messages, **self._filter_params(params)):
                 yield chunk
+            return
+        if self.provider == Provider.BEDROCK:
+            # real ConverseStream: AWS binary eventstream frames parsed
+            # in llm/bedrock.py — TTFT is the model's first delta
+            async for kind, payload in self._bedrock.converse_stream(
+                    messages, **self._filter_params(params)):
+                if kind == "contentBlockDelta":
+                    delta = (payload.get("delta") or {}).get("text")
+                    if delta:
+                        yield delta
             return
         payload = {
             "model": self.model,

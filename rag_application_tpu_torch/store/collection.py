@@ -9,8 +9,9 @@ on the card. Reads go through the fused funnel, by vector
 (`bind_query_encoder` + `hybrid_search_text_batch`).
 
 `index/checkpoint.py` saves and restores a collection in the reference's
-file format (`save_collection` / `load_collection`). Not ported yet: the
-ANN engine (`build_ann`/`ann_search` need `index/ivf.py`) raises.
+file format (`save_collection` / `load_collection`). `build_ann` builds
+the IVF engine (`index/ivf.py`) over the collection's rows on its device,
+and `ann_search` queries it with the payload filter as a device mask.
 """
 
 from __future__ import annotations
@@ -71,13 +72,41 @@ class Collection:
     # ------------------------------------------------------------------ ANN
 
     def build_ann(self, *, engine: str = "ivf", **kw) -> None:
-        raise NotImplementedError(
-            "build_ann: the IVF engine (index/ivf.py) is not ported yet")
+        """Build the sublinear ANN engine over the current rows (the
+        HNSW-equivalent; `ef` at query time parities `hnsw_ef`).
+        engine="ivf" is the only engine: the coarse-quantizer partition
+        scan of index/ivf.py."""
+        if engine != "ivf":
+            raise ValueError(f"unknown ANN engine {engine!r} "
+                             "(the graph engine was removed; use 'ivf')")
+        from ..index.ivf import IVFIndex
+
+        self.ann = IVFIndex.build(self.dense, **kw)
 
     def ann_search(self, query_embedding, limit: int = 10, *, ef: int = 128,
                    **filters) -> List[SearchHit]:
-        raise NotImplementedError(
-            "ann_search: the IVF engine (index/ivf.py) is not ported yet")
+        """ANN query with payload join + filters (`ef` maps to IVF
+        probes — the same more-work-more-recall contract as hnsw_ef,
+        qdrant_handler.py:369)."""
+        if getattr(self, "ann", None) is None:
+            raise RuntimeError("call build_ann() first")
+        from ..index.ivf import IVFIndex, IVFSearchParams
+
+        mask = self.payloads.filter_mask(self.dense.capacity, **filters)
+        assert isinstance(self.ann, IVFIndex)
+        vals, ids = self.ann.search(
+            np.asarray(query_embedding)[None, :], limit,
+            params=IVFSearchParams(probes=ef),
+            filter_mask=(torch.from_numpy(mask).to(self.device)
+                         if mask is not None else None))
+        hits = []
+        for score, row in zip(vals[0].cpu().numpy(), ids[0].cpu().numpy()):
+            if not np.isfinite(score):
+                continue
+            payload = self.payloads.get(int(row))
+            if payload is not None:
+                hits.append(SearchHit(float(score), int(row), payload))
+        return hits
 
     # ------------------------------------------------------------- writes
 

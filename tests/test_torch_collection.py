@@ -260,10 +260,13 @@ def test_vector_store_registry_and_unported():
         assert [c.name for c in vs.collections()] == ["user_alice"]
     col = t.get_or_create("alice")
     assert col.device.type == "cpu" and col.dense.device.type == "cpu"
-    with pytest.raises(NotImplementedError):
-        col.build_ann()
-    with pytest.raises(NotImplementedError):
-        col.ann_search(np.zeros(32, dtype=np.float32))
+    # the ANN engine is ported (tests/test_torch_ivf.py): on an empty
+    # collection both packages refuse alike
+    for c in (j.get_or_create("alice"), col):
+        with pytest.raises(ValueError, match="empty index"):
+            c.build_ann()
+        with pytest.raises(RuntimeError, match="build_ann"):
+            c.ann_search(np.zeros(32, dtype=np.float32))
     # dense, sparse and payload rows must stay aligned: both refuse a
     # batch whose embeddings do not match its chunks
     embs = np.ones((2, 32), dtype=np.float32)

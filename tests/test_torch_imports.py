@@ -34,12 +34,16 @@ def test_port_imports_without_jax():
     # checkpoint), search (incl. params, rerank, batcher, hybrid,
     # orchestration), kg, kernels, native (incl. wordpiece_lib), models
     # (decoder, wordpiece, encoder, embedder, tokenizer, cache), store
-    # (collection, objects), llm (router, local), ingest (pipeline and
-    # its parsers), tools (registry, web), utils, config, state, ...
-    assert len(mods) >= 65
+    # (collection, objects), llm (router, local, bedrock, provision,
+    # vlm), ingest (pipeline and its parsers), tools (registry, web,
+    # knowledge, browser), agents, index.ivf, utils, config, state, ...
+    assert len(mods) >= 77
     assert {f"rag_application_tpu_torch.{m}" for m in (
         "index.checkpoint", "search.batcher", "search.hybrid",
         "search.orchestration", "ops.graph_hop", "kg.store",
         "kg.checkpoint", "kg.dedup", "kg.extract", "ingest.pipeline",
         "ingest.queue", "ingest.pdf", "ingest.jbig2", "store.objects",
-        "tools.web")} <= mods
+        "tools.web", "index.ivf", "tools.knowledge", "tools.browser",
+        "agents", "agents.memory", "agents.base_agent", "agents.chat_agent",
+        "agents.waiter_agent", "agents.deep_research", "llm.vlm",
+        "llm.bedrock", "llm.provision")} <= mods
