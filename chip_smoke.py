@@ -95,7 +95,7 @@
    8,000-char chunks, 10 workers, 5 retries; an `ObjectStore` under
    build/; the KG hook, with an extractor stub that draws a page of
    `[kg]`'s shape from `[kg]`'s vocabulary, seeded by the text) into that
-   Collection and KGStore: the five non-CSV real fixtures, 64 generated
+   Collection and KGStore: the five non-CSV real fixtures, 32 generated
    text documents of 16 chunks of `[ingest]`'s zipf words, a PDF and a
    docx built here, and one `ingest_url` through a stub fetcher
    (documents/s and chunks/s by kind, encode / store / KG upsert ms a
@@ -156,6 +156,37 @@
    of the kernel path against the einsum path, a profiled decode step,
    and one `LocalLLM.chat` and one `stream` at B 1 whose texts must be
    equal.
+9. `[serve]`, the port's HTTP service. Before step 8, the [ingest]
+   collection and the [kg] graph are saved as one user space (with an
+   account) through `serve.checkpoint_spaces` under build/smoke_serve/.
+   Here `build_app(Config(), device=cuda)` with a LOCAL router over
+   `LocalLLM` on the [gen-main] weights and flags (a vocabulary with a
+   single-byte piece for every printable byte, so response schemas
+   compile; SERVE_NEW new tokens where a call names no limit; one
+   structured attempt) boots from that directory through
+   `serve.restore_spaces` (the users and the account must be the saved
+   ones), the search MCP server is attached at /mcp, and an
+   `HTTPServer` on port 0 serves in a thread. The standard library's
+   client sends `GET /health`, `/v1/models`, `/metrics`; 8
+   `/ingest/raw-text` (prep launches equal to the inserts, the first
+   document's held to plain in place); 64 `/api/v1/search/hybrid`, 8 at
+   once through the space's micro-batcher (each answer equal to
+   `Collection.hybrid_search` run directly, scores within 1e-6, other
+   hits only at near-ties); 8 `/search/scout`; 4 `/v1/chat/completions`
+   with a finite `response_format` schema (parsed and schema-valid, its
+   constraint compiled); 4 `/api/v1/query/ask`; 2 streamed
+   `/chat/completions` (non-empty); `/v1/embeddings` on 8 texts (equal to
+   `Embedder.encode`); `/admin/checkpoint` then `/admin/restore` under a
+   new user id (answers equal); the MCP server listed and called over
+   HTTP and through `MCPClient.add_inprocess` (equal). Every scan, match
+   and prep launch is held to plain, the first SERVE_ATTN_CHECKS decode
+   attention launches as they happen. Then `python -m
+   rag_application_tpu_torch.serve` (STUB provider) boots from the same
+   directory as its own process: seconds until `/health` answers, its
+   users and chunk count the saved ones, a hybrid search equal to the
+   in-process answer before the ingests; then it is stopped. Prints
+   p50/p90 ms and launches per route, searches/s, generated tokens/s,
+   boot and restore seconds and peak memory.
 
 Prints one `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {...}}`. Exits non-zero on any failure, and
@@ -187,6 +218,11 @@ for work on the serving read path.
 runs steps 1-2, `[ingest]` of step 6 and `[pipeline]` of step 7 alone,
 into `[ingest]`'s collection and a new KGStore at the API's width, for
 work on the ingest pipeline.
+
+    python3 chip_smoke.py --serve
+
+runs steps 1-2, `[ingest]` of step 6 and `[kg]` of step 7, then step 9
+alone (building the [gen-main] weights), for work on the HTTP service.
 
     python3 chip_smoke.py --ann
     python3 chip_smoke.py --agents
@@ -269,9 +305,10 @@ CKPT_DIR = "build/smoke_checkpoints"
 # built here, and one URL through a stub fetcher
 PIPE_REAL = ("Resume.pdf", "ragas_papers.pdf", "cube.PDF",
              "Vivek Malipatel - Resume.docx", "Intro To ML - Slide.pptx")
-# 64 generated documents, not 128: at 128 the whole run took 725 s of
-# its 1,200 (the pipeline 425 of them), over half its limit
-PIPE_DOCS, PIPE_CHUNKS = 64, 16
+# 32 generated documents, not 128 or 64: at 128 the whole run took 725 s
+# of its 1,200 (the pipeline 425 of them), and at 64 with [serve] ~640 s
+# (the pipeline 184 of them), over half its limit
+PIPE_DOCS, PIPE_CHUNKS = 32, 16
 PIPE_SERIAL_DOCS = 16  # generated documents again at max_concurrency=1
 PIPE_URL = "https://docs.example.com/guides/retrieval"
 PIPE_OBJECTS = "build/smoke_objects"
@@ -299,6 +336,24 @@ AGENT_TOOLS = ("hybrid_search", "search_entities_semantic",
                "search_across_spaces", "search_pages_semantic",
                "search_relationships_semantic", "search_documents")
 AGENT_SHEET = "people.csv"
+
+# [serve]: the port's HTTP service (api/app.py's build_app, serve.py's
+# restore_spaces) over the [ingest] collection and the [kg] graph saved as
+# one user space, a LOCAL router at [gen-main]'s widths and weights, every
+# route by the standard library's client; then `python -m
+# rag_application_tpu_torch.serve` from the same directory
+SERVE_DIR = "build/smoke_serve"
+SERVE_INGESTS, SERVE_SEARCHES, SERVE_CONCURRENCY = 8, 64, 8
+SERVE_SCOUTS, SERVE_CHATS, SERVE_ASKS, SERVE_STREAMS = 8, 4, 4, 2
+SERVE_EMBED = 8
+# a finite grammar: every path through it ends, so a random model's
+# constrained decode reaches an accepting state
+SERVE_SCHEMA = {"type": "object", "properties": {
+    "kind": {"enum": ["alpha", "beta"]}, "ok": {"type": "boolean"}}}
+SERVE_SCHEMA_NEW = 48  # bytes of its longest sentence, 28, and eos
+SERVE_NEW = 24        # new tokens where a call names no limit
+SERVE_ATTN_CHECKS = 88  # decode_attn launches held to plain (4 steps x 22)
+SERVE_BOOT_S = 300
 
 
 def log(msg: str) -> None:
@@ -3862,6 +3917,614 @@ def run_agents(col, emb, kg, tokens, dev):
     return errs, launches, preps_all
 
 
+# ------------------------------------------------------------------ [serve]
+
+def serve_vocab(size):
+    """The generation vocabulary of [gen-main], with single-byte ``##``
+    pieces for every printable ASCII byte, so that the response schemas'
+    grammars compile (`compile_schema` refuses a vocabulary that cannot
+    spell ``{``); the rest as in `run_local_llm`."""
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", ":", "user", "assistant"]
+    words += [f"##{chr(c)}" for c in range(0x20, 0x7F)]
+    words += [f"w{i}" if i % 2 else f"##p{i}"
+              for i in range(size - len(words))]
+    return words
+
+
+class ServerThread:
+    """An `HTTPServer` on its own event loop in a thread of this process
+    (port 0: the OS picks one)."""
+
+    def __init__(self, router):
+        import asyncio
+        import threading
+
+        from rag_application_tpu_torch.api.http import HTTPServer
+
+        self.loop = asyncio.new_event_loop()
+        self.server = HTTPServer(router, host="127.0.0.1", port=0)
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True)
+
+    def start(self) -> int:
+        import asyncio
+
+        self.thread.start()
+        return asyncio.run_coroutine_threadsafe(
+            self.server.start(), self.loop).result(60)
+
+    def stop(self) -> None:
+        """Stop serving, cancel the loop's other tasks (the micro-batchers'
+        loops), stop and close the loop."""
+        import asyncio
+
+        async def shutdown():
+            await self.server.stop()
+            tasks = [t for t in asyncio.all_tasks()
+                     if t is not asyncio.current_task()]
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+
+        asyncio.run_coroutine_threadsafe(shutdown(), self.loop).result(60)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(60)
+        self.loop.close()
+
+
+def http_call(port, method, path, body=None, *, timeout=600):
+    """One request by the standard library's client (one connection,
+    closed after it): (status, parsed JSON or text, host ms)."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, body=data, headers={
+            "content-type": "application/json", "connection": "close"})
+        r = conn.getresponse()
+        raw = r.read()
+        ctype = r.getheader("content-type", "")
+    finally:
+        conn.close()
+    ms = (time.perf_counter() - t0) * 1e3
+    out = json.loads(raw) if ctype.startswith("application/json") else \
+        raw.decode()
+    return r.status, out, ms
+
+
+def http_sse(port, path, body, *, timeout=600):
+    """A streamed request: the parsed ``data:`` events up to [DONE], and
+    host ms."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    events = []
+    try:
+        conn.request("POST", path, body=json.dumps(body).encode(),
+                     headers={"content-type": "application/json"})
+        r = conn.getresponse()
+        if r.status != 200 or not r.getheader(
+                "content-type", "").startswith("text/event-stream"):
+            raise AssertionError(f"[serve] {path}: {r.status} {r.read()!r}")
+        while True:
+            line = r.readline()
+            if not line:
+                break
+            line = line.decode().strip()
+            if not line.startswith("data:"):
+                continue
+            data = line[5:].strip()
+            if data == "[DONE]":
+                break
+            events.append(json.loads(data))
+    finally:
+        conn.close()
+    return events, (time.perf_counter() - t0) * 1e3
+
+
+def serve_checkpoint(col, kg, emb, dev):
+    """Save the [ingest] collection and the [kg] graph as one user space
+    through the port's `serve.checkpoint_spaces`, with an account beside
+    them, under SERVE_DIR (emptied first). Returns (directory, the saved
+    user ids, the account's username, seconds, MB on disk)."""
+    import os
+    import shutil
+
+    from rag_application_tpu_torch.api.app import UserSpace, build_app
+    from rag_application_tpu_torch.config import Config
+    from rag_application_tpu_torch.llm.router import LLMRouter, Provider
+    from rag_application_tpu_torch.serve import checkpoint_spaces
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        SERVE_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    _, st = build_app(Config(), llm=LLMRouter(Provider.STUB), embedder=emb,
+                      device=dev)
+    uid = col.name[len("user_"):]
+    st.users[uid] = UserSpace(col, kg, st.make_pipeline(uid, col, kg))
+    st.user_registry.signup("smoke-admin", "smoke-password")
+    t0 = time.perf_counter()
+    saved = checkpoint_spaces(st, os.path.join(root, "spaces"), {})
+    secs = time.perf_counter() - t0
+    if saved != [uid]:
+        raise AssertionError(f"[serve] checkpoint_spaces saved {saved}")
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+    return os.path.join(root, "spaces"), saved, "smoke-admin", secs, size / 1e6
+
+
+def serve_hits_close(got, want, label):
+    """Hit lists (score, payload) from the API against the same search
+    run directly: the same payloads, scores within 1e-6, but where two
+    hits within 1e-6 of each other swap places."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} hits, {len(want)} direct")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if abs(g[0] - w[0]) > 1e-6:
+            raise AssertionError(f"{label}: hit {i} score {g[0]} != {w[0]}")
+        if g[1] != w[1]:
+            tied = [x for x in want if abs(x[0] - g[0]) <= 1e-6]
+            if g[1] not in [x[1] for x in tied]:
+                raise AssertionError(f"{label}: hit {i} differs: "
+                                     f"{g[1]} != {w[1]}")
+
+
+def run_serve(emb, dev, gen, ckpt):
+    """[serve]: the port's HTTP service on the card. `build_app` with a
+    LOCAL router (TinyLlama-1.1B widths, the [gen-main] weights and
+    flags, `serve_vocab`, generation capped at SERVE_NEW tokens where a
+    request names no limit, one structured attempt), `serve.restore_spaces`
+    from ``ckpt``, the search MCP server at /mcp, an `HTTPServer` on port
+    0 in a thread; then every route of SERVE_* by the standard library's
+    client, each route's answers checked and its launches counted, every
+    scan, match and prep launch held to plain; then the server as its own
+    process. Returns ((int8 scan, bf16 scan, bm25) max abs errors,
+    launches by kernel entry, the decode attention's max abs error)."""
+    import asyncio
+    import os
+    import signal
+    import socket
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from rag_application_tpu_torch.api.app import build_app
+    from rag_application_tpu_torch.config import Config
+    from rag_application_tpu_torch.index import dense as idense
+    from rag_application_tpu_torch.llm.local import LocalLLM
+    from rag_application_tpu_torch.llm.router import LLMRouter, Provider
+    from rag_application_tpu_torch.mcp.search_server import SearchMCPServer
+    from rag_application_tpu_torch.models.wordpiece import WordPieceTokenizer
+    from rag_application_tpu_torch.ops import bm25 as ob
+    from rag_application_tpu_torch.ops import decode_attn as da
+    from rag_application_tpu_torch.ops import fused_topk as ft
+    from rag_application_tpu_torch.ops import quant as oq
+    from rag_application_tpu_torch.serve import restore_spaces
+    from rag_application_tpu_torch.tools.mcp_client import MCPClient
+
+    ckpt_dir, saved_users, account, _, _ = ckpt
+    params, gcfg = gen
+    tok = WordPieceTokenizer.from_vocab_list(serve_vocab(gcfg.vocab_size),
+                                             max_len=gcfg.max_len)
+    local = LocalLLM(params, gcfg, tok, model_name="tinyllama-1.1b-random",
+                     device=dev)
+
+    class CappedRouter(LLMRouter):
+        """The LOCAL router with SERVE_NEW new tokens where a call names no
+        limit (the orchestrator's and the agent's calls)."""
+
+        async def chat(self, messages, **params):
+            if not params.get("max_tokens"):
+                params["max_tokens"] = SERVE_NEW
+            return await super().chat(messages, **params)
+
+    llm = CappedRouter(Provider.LOCAL, local=local, model=local.model_name,
+                       max_retries=1)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    router, st = build_app(Config(), llm=llm, embedder=emb, device=dev)
+    restored = restore_spaces(st, ckpt_dir)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if restored != saved_users or not any(
+            u["username"] == account for u in st.user_registry.list()):
+        raise AssertionError(f"[serve] restored {restored} (saved "
+                             f"{saved_users}), accounts "
+                             f"{st.user_registry.list()}")
+    uid = restored[0]
+    sp = st.users[uid]
+    if sp.collection.device != dev or sp.kg.device != dev:
+        raise AssertionError("[serve] restored stores off the card")
+    chunks0 = sp.collection.chunk_count()
+    log(f"  build_app + restore_spaces: {restore_s:.2f} s, user {uid!r} "
+        f"({chunks0:,} chunks, KG {sp.kg.stats()}), account {account!r}")
+    mcp = SearchMCPServer(sp.collection, sp.kg, emb)
+    mcp.attach_http(router)
+    srv = ServerThread(router)
+    port = srv.start()
+    rng = np.random.default_rng(101)
+    live = np.nonzero(sp.collection.dense.live[:sp.collection.dense.size]
+                      .cpu().numpy())[0]
+    stored = [sp.collection.payloads.get(int(r))["text"]
+              for r in rng.choice(live, SERVE_SEARCHES, replace=False)]
+    words = [t.split() for t in stored]
+    queries = [" ".join(w[j] if rng.random() > TOK_FLIP
+                        else f"w{rng.integers(0, VOCAB)}" for j in range(len(w)))
+               for w in words]
+
+    # decode attention: the first SERVE_ATTN_CHECKS launches held to plain
+    # as they happen (the cache is written in place after each)
+    real_attn = da.decode_attend_int8
+    attn_err = [0.0]
+
+    def attn_checked(*args):
+        out = real_attn(*args)
+        if attn_checked.launches <= SERVE_ATTN_CHECKS:
+            plain = da.decode_attend_int8_plain(*args)
+            err = (out.float() - plain.float()).abs().max().item()
+            if err > 2 * bf16_ulp(plain.float().abs().max().item()):
+                raise AssertionError(f"[serve] decode_attn != plain: {err}")
+            attn_err[0] = max(attn_err[0], err)
+        return out
+
+    attn_checked.launches = 0
+    inserts = [0]
+    real_insert = idense.DenseIndex.insert
+
+    def counting_insert(self, x):
+        inserts[0] += 1
+        return real_insert(self, x)
+
+    def counts():
+        return {**scan_counts(ft), "bm25_match": ob.bm25_match_rows.launches,
+                "prep_vectors": oq.prepare_vectors_into.launches,
+                "decode_attn": da.decode_attend_int8.launches}
+
+    routes = {}   # route -> {"ms": [...], "launches": {...}}
+
+    def route(name, fn):
+        before = counts()
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        after = counts()
+        entry = routes.setdefault(name, {"ms": [], "launches": {},
+                                         "wall_s": 0.0})
+        for k in after:
+            entry["launches"][k] = (entry["launches"].get(k, 0)
+                                    + after[k] - before[k])
+        entry["wall_s"] += wall
+        return out
+
+    def call(name, method, path, body=None, want=200):
+        status, out, ms = http_call(port, method, path, body)
+        if status != want:
+            raise AssertionError(f"[serve] {method} {path}: {status} {out}")
+        routes.setdefault(name, {"ms": [], "launches": {}, "wall_s": 0.0})
+        routes[name]["ms"].append(ms)
+        return out
+
+    server_proc = logf = None
+    try:
+        with recording(ft, "scan_sheet") as scans, \
+                recording(ob, "bm25_match_rows") as matches:
+            reset_scan_counts(ft)
+            ob.bm25_match_rows.launches = 0
+            oq.prepare_vectors_into.launches = 0
+            da.decode_attend_int8 = attn_checked
+            idense.DenseIndex.insert = counting_insert
+            try:
+                health = route("GET /health",
+                               lambda: call("GET /health", "GET", "/health"))
+                models = route("GET /v1/models", lambda: call(
+                    "GET /v1/models", "GET", "/v1/models"))
+                metrics = route("GET /metrics", lambda: call(
+                    "GET /metrics", "GET", "/metrics"))
+                if (health != {"status": "ok", "users": 1}
+                        or models["data"][0]["id"] != local.model_name
+                        or not isinstance(metrics, str)):
+                    raise AssertionError(f"[serve] {health} {models}")
+                ref_query = queries[0]
+                ref = route("POST /api/v1/search/hybrid", lambda: call(
+                    "POST /api/v1/search/hybrid", "POST",
+                    "/api/v1/search/hybrid",
+                    {"query": ref_query, "user_id": uid, "limit": K}))
+                # held to plain now: the ingests below write the planes
+                # and the live mask that its recorded inputs point at
+                ref_errs = check_recorded("[serve] the search before the "
+                                          "ingests", routed(scans), matches,
+                                          each=False)
+                del scans[:], matches[:]
+
+                # ingest: the prep launches are the inserts; the first
+                # document's held to plain in place
+                docs = [" ".join(words[i % len(words)] * 3)
+                        for i in range(SERVE_INGESTS)]
+                with recording(idense, "prepare_vectors_into") as preps:
+                    first = route("POST /ingest/raw-text", lambda: call(
+                        "POST /ingest/raw-text", "POST", "/ingest/raw-text",
+                        {"text": docs[0], "document_id": "serve-doc-0",
+                         "user_id": uid}, want=202))
+                preps_first = check_preps("[serve] the first ingest", preps)
+                for i in range(1, SERVE_INGESTS):
+                    route("POST /ingest/raw-text", lambda i=i: call(
+                        "POST /ingest/raw-text", "POST", "/ingest/raw-text",
+                        {"text": docs[i], "document_id": f"serve-doc-{i}",
+                         "user_id": uid}, want=202))
+                ing = routes["POST /ingest/raw-text"]["launches"]
+                if (ing["prep_vectors"] != inserts[0] or not first["chunks"]
+                        or not preps_first):
+                    raise AssertionError(f"[serve] ingest: prep launches "
+                                         f"{ing['prep_vectors']}, inserts "
+                                         f"{inserts[0]}")
+
+                # 64 searches, SERVE_CONCURRENCY at once (the micro-batcher)
+                def search(q):
+                    return call("POST /api/v1/search/hybrid", "POST",
+                                "/api/v1/search/hybrid",
+                                {"query": q, "user_id": uid, "limit": K})
+
+                # the first search after the ingests rebuilds BM25's device
+                # tables; the 64 are timed after it
+                rebuild = route("POST /api/v1/search/hybrid",
+                                lambda: search(queries[-1]))
+                rebuild_ms = routes["POST /api/v1/search/hybrid"]["ms"][-1]
+                t0 = time.perf_counter()
+                with ThreadPoolExecutor(SERVE_CONCURRENCY) as pool:
+                    answers = route("POST /api/v1/search/hybrid", lambda: list(
+                        pool.map(search, queries)))
+                search_rps = SERVE_SEARCHES / (time.perf_counter() - t0)
+                for q in queries[:SERVE_SCOUTS]:
+                    route("POST /search/scout", lambda q=q: call(
+                        "POST /search/scout", "POST", "/search/scout",
+                        {"query": q, "user_id": uid, "k": K}))
+
+                # LOCAL generation: a finite response_format schema
+                schema = SERVE_SCHEMA
+                gen_tokens = [0]
+                for i in range(SERVE_CHATS):
+                    out = route("POST /v1/chat/completions", lambda i=i: call(
+                        "POST /v1/chat/completions", "POST",
+                        "/v1/chat/completions",
+                        {"messages": [{"role": "user",
+                                       "content": f"classify {queries[i]}"}],
+                         "max_tokens": SERVE_SCHEMA_NEW,
+                         "response_format": {"type": "json_schema",
+                                             "json_schema": {
+                                                 "schema": schema}}}))
+                    doc = json.loads(out["choices"][0]["message"]["content"])
+                    if (set(doc) != set(schema["properties"])
+                            or doc["kind"] not in ("alpha", "beta")
+                            or not isinstance(doc["ok"], bool)):
+                        raise AssertionError(f"[serve] structured {doc}")
+                    gen_tokens[0] += out["usage"]["completion_tokens"]
+                key = local._schema_key(schema)
+                if (local._constraint_cache.get(key) is None
+                        or key not in local._constraint_dev):
+                    raise AssertionError("[serve] the schema's constraint "
+                                         "did not compile")
+                asks = []
+                for i in range(SERVE_ASKS):
+                    asks.append(route("POST /api/v1/query/ask",
+                                      lambda i=i: call(
+                        "POST /api/v1/query/ask", "POST",
+                        "/api/v1/query/ask",
+                        {"question": queries[i], "user_id": uid})))
+                if not all(a["sources"] and isinstance(a["answer"], str)
+                           for a in asks):
+                    raise AssertionError(f"[serve] ask {asks[0]}")
+                streamed = []
+                for i in range(SERVE_STREAMS):
+                    def one(i=i):
+                        events, ms = http_sse(port, "/chat/completions", {
+                            "user": uid, "stream": True, "messages": [
+                                {"role": "user", "content": queries[i]}]})
+                        routes.setdefault(
+                            "POST /chat/completions (stream)",
+                            {"ms": [], "launches": {}, "wall_s": 0.0}
+                        )["ms"].append(ms)
+                        return events
+                    events = route("POST /chat/completions (stream)", one)
+                    text = "".join(e["choices"][0]["delta"].get("content", "")
+                                   for e in events)
+                    if (not text
+                            or events[-1]["choices"][0]["finish_reason"]
+                            != "stop"):
+                        raise AssertionError(f"[serve] stream {events[-2:]}")
+                    streamed.append(text)
+                texts = [queries[i] for i in range(SERVE_EMBED)]
+                vecs = route("POST /v1/embeddings", lambda: call(
+                    "POST /v1/embeddings", "POST", "/v1/embeddings",
+                    {"input": texts}))
+                got = np.asarray([d["embedding"] for d in vecs["data"]],
+                                 np.float32)
+                if not np.array_equal(got, emb.encode(texts)):
+                    raise AssertionError("[serve] /v1/embeddings != "
+                                         "Embedder.encode")
+
+                # admin checkpoint, restore under a new id, same answers
+                apath = os.path.join(os.path.dirname(ckpt_dir), "admin")
+                saved = route("POST /admin/checkpoint", lambda: call(
+                    "POST /admin/checkpoint", "POST", "/admin/checkpoint",
+                    {"user_id": uid, "path": apath}))
+                back = route("POST /admin/restore", lambda: call(
+                    "POST /admin/restore", "POST", "/admin/restore",
+                    {"user_id": uid + "-restored", "path": apath}))
+                if back["chunks"] != saved["chunks"] or back["kg"] != \
+                        saved["kg"]:
+                    raise AssertionError(f"[serve] restore {back} != {saved}")
+                for q in queries[:SERVE_SCOUTS]:
+                    a, b = (route("POST /api/v1/search/hybrid (restored)",
+                                  lambda u=u: call(
+                                      "POST /api/v1/search/hybrid (restored)",
+                                      "POST", "/api/v1/search/hybrid",
+                                      {"query": q, "user_id": u,
+                                       "limit": K}))
+                            for u in (uid, uid + "-restored"))
+                    if a != b:
+                        raise AssertionError("[serve] the restored space "
+                                             "answers otherwise")
+
+                # the search MCP server over HTTP and in process
+                tools = route("POST /mcp", lambda: call(
+                    "POST /mcp", "POST", "/mcp",
+                    {"jsonrpc": "2.0", "id": 1, "method": "tools/list"}))
+                margs = {"query": queries[1], "k": K}
+                over_http = route("POST /mcp", lambda: call(
+                    "POST /mcp", "POST", "/mcp",
+                    {"jsonrpc": "2.0", "id": 2, "method": "tools/call",
+                     "params": {"name": "hybrid_search",
+                                "arguments": margs}}))
+                client = MCPClient()
+                client.add_inprocess("search", mcp)
+                in_proc = route("MCP in process", lambda: asyncio.run(
+                    client.call("search", "hybrid_search", margs)))
+                names = [t["name"] for t in tools["result"]["tools"]]
+                if (len(names) < 21 or "hybrid_search" not in names
+                        or json.loads(over_http["result"]["content"][0]
+                                      ["text"]) != in_proc or not in_proc):
+                    raise AssertionError("[serve] MCP over HTTP != in process")
+                totals = counts()
+            finally:
+                da.decode_attend_int8 = real_attn
+                idense.DenseIndex.insert = real_insert
+            peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+
+            # the API's hits against Collection.hybrid_search run directly
+            for i, (q, a) in enumerate(zip(queries, answers)):
+                direct = sp.collection.hybrid_search(emb.encode([q])[0], q,
+                                                     limit=K)
+                serve_hits_close([(h["score"], h["payload"])
+                                  for h in a["results"]],
+                                 [(h.score, h.payload) for h in direct],
+                                 f"[serve] search {i}")
+        errs = tuple(map(max, zip(ref_errs, check_recorded(
+            "[serve] every route after the ingests", routed(scans), matches,
+            each=False))))
+        launches = {k: sum(r["launches"].get(k, 0) for r in routes.values())
+                    for k in totals}
+        if launches != totals or not all(launches.values()):
+            raise AssertionError(f"[serve] launches by route {launches}, in "
+                                 f"all {totals}")
+
+        # the server as its own process, from the same checkpoint
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            sub_port = s.getsockname()[1]
+        env = dict(os.environ, RAGTPU_CHECKPOINT_DIR=ckpt_dir,
+                   RAGTPU_PORT=str(sub_port), RAGTPU_HOST="127.0.0.1",
+                   RAGTPU_LLM_PROVIDER="stub",
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        env.pop("RAGTPU_PLATFORM", None)
+        logf = open(os.path.join(os.path.dirname(ckpt_dir), "server.log"),
+                    "w")
+        t0 = time.perf_counter()
+        server_proc = subprocess.Popen(
+            [sys.executable, "-m", "rag_application_tpu_torch.serve"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=logf, stderr=subprocess.STDOUT)
+        while True:
+            try:
+                status, h, _ = http_call(sub_port, "GET", "/health",
+                                         timeout=5)
+                break
+            except OSError:
+                if server_proc.poll() is not None or \
+                        time.perf_counter() - t0 > SERVE_BOOT_S:
+                    logf.flush()
+                    with open(logf.name) as f:
+                        tail = f.read()[-2000:]
+                    raise AssertionError(f"[serve] the server process did "
+                                         f"not answer: {tail}")
+                time.sleep(0.25)
+        boot_s = time.perf_counter() - t0
+        _, cols, _ = http_call(sub_port, "GET", "/api/v1/collections")
+        _, sub_ref, _ = http_call(sub_port, "POST", "/api/v1/search/hybrid",
+                                  {"query": ref_query, "user_id": uid,
+                                   "limit": K})
+        if (h != {"status": "ok", "users": len(saved_users)}
+                or [c["user_id"] for c in cols["collections"]]
+                != saved_users
+                or cols["collections"][0]["chunks"] != chunks0):
+            raise AssertionError(f"[serve] server process: {h}, {cols}")
+        serve_hits_close([(x["score"], x["payload"]) for x in
+                          sub_ref["results"]],
+                         [(x["score"], x["payload"]) for x in ref["results"]],
+                         "[serve] the server process's search")
+    finally:
+        if server_proc is not None:
+            server_proc.send_signal(signal.SIGTERM)
+            try:
+                server_proc.wait(30)
+            except subprocess.TimeoutExpired:
+                server_proc.kill()
+                server_proc.wait()
+        if logf is not None:
+            logf.close()
+        srv.stop()
+
+    def pct(ms, p):
+        return f"{np.percentile(ms, p):.1f}"
+
+    for name, r in routes.items():
+        took = {k: v for k, v in r["launches"].items() if v}
+        if r["ms"]:
+            log(f"  {name}: {len(r['ms'])} requests, p50 {pct(r['ms'], 50)} "
+                f"ms, p90 {pct(r['ms'], 90)} ms (host clock); launches "
+                f"{took}")
+        else:
+            log(f"  {name}: {r['wall_s'] * 1e3:.1f} ms; launches {took}")
+    chat_s = routes["POST /v1/chat/completions"]["wall_s"]
+    log(f"  searches: the first after the ingests {rebuild_ms:.1f} ms (BM25's "
+        f"device tables rebuilt, {len(rebuild['results'])} hits), then "
+        f"{SERVE_SEARCHES} requests {SERVE_CONCURRENCY} at once, "
+        f"{search_rps:.1f} requests/s, hits equal to Collection.hybrid_search"
+        f" (scores within 1e-6); structured chats: {gen_tokens[0]} tokens in "
+        f"{chat_s:.2f} s ({gen_tokens[0] / chat_s:.1f} generated tokens/s, "
+        f"constrained, schema-valid); asks {SERVE_ASKS}, streams "
+        f"{SERVE_STREAMS} ({[len(t) for t in streamed]} chars); MCP "
+        f"{len(names)} tools, equal over HTTP and in process")
+    log(f"  the server process: /health after {boot_s:.2f} s (restore of "
+        f"{saved_users} included), its search equal to the in-process one; "
+        f"in-process restore {restore_s:.2f} s; peak device memory above "
+        f"the weights and stores {peak:.2f} GiB; launches {launches}; "
+        f"decode_attn first {SERVE_ATTN_CHECKS} held to plain (max abs err "
+        f"{attn_err[0]:.3g})")
+    return errs, launches, attn_err[0]
+
+
+def serve_phase(emb, dev, gen, ckpt, card):
+    """[serve], logged with its time; returns `run_serve`'s. Builds the
+    [gen-main] weights when ``gen`` is None."""
+    import torch
+
+    from rag_application_tpu_torch.models import decoder as dec
+
+    t0 = time.perf_counter()
+    if gen is None:
+        cfg = dec.DecoderConfig(**GEN_CFG)
+        g = torch.Generator(device=dev).manual_seed(0)
+        gen = (dec.quantize_decoder_params(
+            dec.init_decoder_params(g, cfg, dev)), cfg)
+    log(f"[serve] build_app + restore_spaces ({ckpt[1]}, saved in "
+        f"{ckpt[3]:.2f} s, {ckpt[4]:,.1f} MB), HTTPServer, every route by the "
+        f"standard library's client, LOCAL generation at TinyLlama-1.1B "
+        f"widths, then the server as its own process ({card})")
+    import os
+    import shutil
+
+    try:
+        out = run_serve(emb, dev, gen, ckpt)
+    finally:
+        shutil.rmtree(os.path.dirname(ckpt[0]), ignore_errors=True)
+    log(f"[serve] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def ann_phase(col, emb, tokens, dev, card):
     """[ann], logged with its time; returns `run_ann`'s."""
     t0 = time.perf_counter()
@@ -3975,6 +4638,24 @@ def agents_only(dev, card) -> int:
     return 0
 
 
+def serve_only(dev, card) -> int:
+    """`--serve`: [ingest] and [kg], saved as one user space, then [serve]
+    (with the [gen-main] weights built here)."""
+    import torch
+
+    col, emb, _, ing_texts, _, _ = run_ingest(dev)
+    t0 = time.perf_counter()
+    log(f"[kg] KGStore at the API's width ({card})")
+    kg, *_ = run_kg(col, emb, ing_texts, dev)
+    log(f"[kg] {time.perf_counter() - t0:.1f} s")
+    ckpt = serve_checkpoint(col, kg, emb, dev)
+    del col, kg
+    torch.cuda.empty_cache()
+    serve_phase(emb, dev, None, ckpt, card)
+    log(card)
+    return 0
+
+
 def attn_only(dev, card) -> int:
     """`--attn`: the decode-attention kernel's checks and times alone, for
     kernel work on it (no tables, search, write path or generation)."""
@@ -4068,6 +4749,8 @@ def main() -> int:
         return ann_only(dev, card)
     if sys.argv[1:] == ["--agents"]:
         return agents_only(dev, card)
+    if sys.argv[1:] == ["--serve"]:
+        return serve_only(dev, card)
 
     from rag_application_tpu_torch.ops import quant as oq
 
@@ -4151,7 +4834,8 @@ def main() -> int:
     scan_err = max(scan_err, errs[0], pipe_errs[0], agent_errs[0])
     scan_bf_err = max(scan_bf_err, errs[1], pipe_errs[1], agent_errs[1])
     bm25_err = max(bm25_err, errs[2], pipe_errs[2], agent_errs[2])
-    del col, emb, kg, ing_tokens, ing_texts
+    serve_ckpt = serve_checkpoint(col, kg, emb, dev)
+    del col, kg, ing_tokens, ing_texts
     torch.cuda.empty_cache()
 
     log("[gen-check] decode_attn kernel vs plain on the card")
@@ -4167,6 +4851,13 @@ def main() -> int:
     compare_attention_paths(params, gcfg, gen_ids)
     torch.cuda.empty_cache()
     run_local_llm(params, gcfg, dev)
+    torch.cuda.empty_cache()
+    serve_errs, serve_launches, serve_attn_err = serve_phase(
+        emb, dev, (params, gcfg), serve_ckpt, card)
+    scan_err = max(scan_err, serve_errs[0])
+    scan_bf_err = max(scan_bf_err, serve_errs[1])
+    bm25_err = max(bm25_err, serve_errs[2])
+    attn_err = max(attn_err, serve_attn_err)
 
     def entry(name, source, replaces, launches_, err, t):
         ms, plain_ms, lib_ms, bound_ms, bound_by = t
@@ -4179,24 +4870,26 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("fused_scan", "rag_application_tpu_torch/csrc/fused_scan.cu",
               "rag_application_tpu/ops/fused_topk.py:61",
-              launches["fused_scan"] + agent_launches["fused_scan"],
-              scan_err, scan_t),
+              launches["fused_scan"] + agent_launches["fused_scan"]
+              + serve_launches["fused_scan"], scan_err, scan_t),
         entry("fused_scan_bf16",
               "rag_application_tpu_torch/csrc/fused_scan_bf16.cu",
               "rag_application_tpu/ops/fused_topk.py:61",
-              launches["fused_scan_bf16"] + agent_launches["fused_scan_bf16"],
-              scan_bf_err, scan_bf_t),
+              launches["fused_scan_bf16"] + agent_launches["fused_scan_bf16"]
+              + serve_launches["fused_scan_bf16"], scan_bf_err, scan_bf_t),
         entry("bm25_match", "rag_application_tpu_torch/csrc/bm25_match.cu",
               "rag_application_tpu/ops/bm25.py:45",
-              launches["bm25_match"] + agent_launches["bm25_match"],
-              bm25_err, bm25_t),
+              launches["bm25_match"] + agent_launches["bm25_match"]
+              + serve_launches["bm25_match"], bm25_err, bm25_t),
         entry("decode_attn", "rag_application_tpu_torch/csrc/decode_attn.cu",
-              "rag_application_tpu/ops/decode_attn.py:86", attn_launches,
-              attn_err, attn_t),
+              "rag_application_tpu/ops/decode_attn.py:86",
+              attn_launches + serve_launches["decode_attn"], attn_err,
+              attn_t),
         entry("prep_vectors", "rag_application_tpu_torch/csrc/prep_vectors.cu",
               "rag_application_tpu/ops/quant.py:66",
-              prep_launches + pipe_launches + ann_preps + agent_preps,
-              max(prep_err, prep_err_kg), prep_t),
+              prep_launches + pipe_launches + ann_preps + agent_preps
+              + serve_launches["prep_vectors"], max(prep_err, prep_err_kg),
+              prep_t),
     ]}), flush=True)
     log(f"{card}")
     print(json.dumps({"ok": True, "device": {

@@ -13,11 +13,15 @@ anything that speaks `LLMRouter` can generate on the local card
 Both run the blocking device work in an executor so the serving event
 loop stays free.
 
+`chat(response_schema=)` appends the reference's schema instruction and,
+when the schema compiles for this vocabulary (models/constrain.py),
+grammar-constrains the decode; a schema `compile_schema` refuses stays
+prompt-only, as in the reference.
+
 Not ported yet, and raising until their modules are: continuous batching
 (`enable_batching`, llm/scheduler.py), prompt-lookup speculation
 (`speculative=True`, models/speculative.py), multi-LoRA serving
-(`register_lora`, models/lora.py), schema-constrained decoding
-(`response_schema`, models/constrain.py) and checkpoint loading
+(`register_lora`, models/lora.py) and checkpoint loading
 (`from_hf_dir`, which needs `transformers` and a model directory).
 """
 
@@ -74,6 +78,8 @@ class LocalLLM:
         self.pad_id = int(getattr(tokenizer, "pad_id", 0) or 0)
         self.model_name = model_name
         self._step = None  # lazy streaming step
+        self._constraint_cache: Dict[str, Optional[Any]] = {}
+        self._constraint_dev: Dict[str, Dict[str, Any]] = {}
 
     @classmethod
     def from_hf_dir(cls, model_dir: str, **kw) -> "LocalLLM":
@@ -105,6 +111,39 @@ class LocalLLM:
         ids = np.full((1, bucket), self.pad_id, np.int32)
         ids[0, :n] = prompt_ids
         return ids
+
+    @staticmethod
+    def _schema_key(schema) -> str:
+        import json as _json
+
+        return _json.dumps(schema, sort_keys=True)
+
+    def _constraint_host_for(self, schema):
+        """Compile (and cache) a response schema into a host-side
+        grammar Constraint; None when the schema is outside the
+        supported subset or the vocabulary can't realize it (the
+        prompt-only fallback still applies)."""
+        key = self._schema_key(schema)
+        if key not in self._constraint_cache:
+            from ..models.constrain import compile_schema
+
+            try:
+                self._constraint_cache[key] = compile_schema(
+                    schema, self.tokenizer, self.cfg.vocab_size)
+            except (ValueError, TypeError):
+                self._constraint_cache[key] = None
+        return self._constraint_cache[key]
+
+    def _constraint_for(self, schema) -> Optional[Dict[str, Any]]:
+        """Device view of the compiled constraint (solo path), on the
+        model's device."""
+        c = self._constraint_host_for(schema)
+        if c is None:
+            return None
+        key = self._schema_key(schema)
+        if key not in self._constraint_dev:
+            self._constraint_dev[key] = c.as_device(self.device)
+        return self._constraint_dev[key]
 
     # ------------------------------------------------------------- prompt
 
@@ -234,16 +273,19 @@ class LocalLLM:
     async def chat(self, messages: Sequence[Any], *,
                    tools=None, response_schema=None,
                    **params: Any):
-        from .router import LLMResponse
+        from .router import ChatMessage, LLMResponse
 
-        if response_schema is not None:
-            raise NotImplementedError(
-                "schema-constrained decoding is not ported yet "
-                "(models/constrain.py)")
         if params.get("adapter"):
             raise ValueError(f"unknown adapter {params['adapter']!r} "
                              "(none registered)")
-        prompt = self.render(messages)
+        msgs = list(messages)
+        if response_schema is not None:
+            import json as _json
+
+            msgs.append(ChatMessage(
+                "user", "Respond with ONLY valid JSON matching this "
+                        f"schema: {_json.dumps(response_schema)}"))
+        prompt = self.render(msgs)
         max_new = max(1, min(int(params.get("max_tokens") or 128),
                              self.cfg.max_len - len(prompt)))
         temperature = float(params.get("temperature") or 0.0)
@@ -262,12 +304,17 @@ class LocalLLM:
             lp_out = [{"token": self.tokenizer.decode([t]),
                        "logprob": l} for t, l in zip(out_ids, lps)]
         else:
+            # grammar-constrain the decode whenever the schema compiles
+            # — the instruction above tells the model WHAT to write,
+            # the DFA guarantees the output parses either way
+            constraint = (self._constraint_for(response_schema)
+                          if response_schema is not None else None)
             out_ids = await loop.run_in_executor(
                 None, lambda: self.generate_ids(
                     prompt, max_new=max_new, temperature=temperature,
                     top_p=top_p, seed=seed, speculative=self.speculative,
                     presence=presence, frequency=frequency,
-                    logit_bias=logit_bias))
+                    constraint=constraint, logit_bias=logit_bias))
         text = self._apply_stop(self._decode(out_ids), params.get("stop"))
         return LLMResponse(content=text,
                            usage={"prompt_tokens": len(prompt),

@@ -29,8 +29,13 @@ dtype; attention scores and softmax are f32; int8 rounding is
 `torch.Generator`s: greedy outputs match the reference token for token,
 sampled outputs follow the same law from a different random stream.
 
-Not ported yet: per-row LoRA adapters (`lora=`, models/lora.py) and
-grammar constraints (`constraint=`, models/constrain.py) raise
+A grammar constraint (`constraint=`, models/constrain.py's
+`Constraint.as_device`) rides the decode loop as in the reference: each
+step masks the sampling logits to the tokens the row's DFA state allows
+(eos exactly in accepting states), then steps the state by the consumed
+token.
+
+Not ported yet: per-row LoRA adapters (`lora=`, models/lora.py) raise
 `NotImplementedError`.
 """
 
@@ -549,9 +554,6 @@ def generate_logprobs(params: Dict[str, Any], cfg: DecoderConfig,
     (unused when greedy). Presence/frequency penalties and `logit_bias`
     shape sampling only, as in the reference."""
     _no_lora(lora)
-    if constraint is not None:
-        raise NotImplementedError(
-            "grammar constraints are not ported yet (models/constrain.py)")
     dev = _params_device(params)
     ids = _as_tensor(ids, torch.int32, dev)
     prompt_len = _as_tensor(prompt_len, torch.int32, dev)
@@ -587,6 +589,14 @@ def generate_logprobs(params: Dict[str, Any], cfg: DecoderConfig,
     bias = (None if logit_bias is None
             else _as_tensor(logit_bias, torch.float32, dev))
     pad = torch.tensor(pad_id, dtype=torch.int32, device=dev)
+    # grammar constraint: per-row DFA state; each step masks the sampling
+    # logits to the grammar's allowed tokens (plus eos exactly in
+    # accepting states), then steps the DFA by the consumed token
+    if constraint is not None:
+        table = constraint["table"].to(dev)
+        accept = constraint["accept"].to(dev)
+        is_eos = torch.arange(V, device=dev) == eos_id
+    gstate = torch.zeros((B,), dtype=torch.long, device=dev)
 
     def emit(logits, done):
         sample_from = logits
@@ -596,6 +606,12 @@ def generate_logprobs(params: Dict[str, Any], cfg: DecoderConfig,
             sample_from = (sample_from
                            - presence * (counts > 0).to(logits.dtype)
                            - frequency * counts.to(logits.dtype))
+        if constraint is not None:
+            allowed = (table[gstate] >= 0) | (accept[gstate][:, None]
+                                              & is_eos[None, :])
+            sample_from = torch.where(
+                allowed, sample_from,
+                torch.tensor(NEG, dtype=sample_from.dtype, device=dev))
         tok = sample_logits(sample_from, rng, temperature=temperature,
                             top_k=top_k, top_p=top_p)
         lp = torch.gather(torch.log_softmax(logits, dim=-1), 1,
@@ -617,6 +633,11 @@ def generate_logprobs(params: Dict[str, Any], cfg: DecoderConfig,
         if penalize:  # the consumed token joins "the text so far"
             counts.index_put_((rows_b, tok.long()),
                               (~newly_done).to(torch.int32), accumulate=True)
+        if constraint is not None:
+            gstate = torch.where(
+                newly_done, gstate,
+                table[gstate, tok.long().clamp(min=0)].long())
+            gstate = gstate.clamp(min=0)  # never index with DEAD
         logits, cache_k, cache_v = decode_step(
             params, cfg, tok, pos, T + step, cache_k, cache_v,
             slot_positions=slot_pos)

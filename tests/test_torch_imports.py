@@ -36,8 +36,10 @@ def test_port_imports_without_jax():
     # (decoder, wordpiece, encoder, embedder, tokenizer, cache), store
     # (collection, objects), llm (router, local, bedrock, provision,
     # vlm), ingest (pipeline and its parsers), tools (registry, web,
-    # knowledge, browser), agents, index.ivf, utils, config, state, ...
-    assert len(mods) >= 77
+    # knowledge, browser, mcp_client), agents, index.ivf, api (http,
+    # users, chat_ui, app), mcp (server, file_server, search_server),
+    # serve, models.constrain, utils, config, state, ...
+    assert len(mods) >= 89
     assert {f"rag_application_tpu_torch.{m}" for m in (
         "index.checkpoint", "search.batcher", "search.hybrid",
         "search.orchestration", "ops.graph_hop", "kg.store",
@@ -46,4 +48,7 @@ def test_port_imports_without_jax():
         "tools.web", "index.ivf", "tools.knowledge", "tools.browser",
         "agents", "agents.memory", "agents.base_agent", "agents.chat_agent",
         "agents.waiter_agent", "agents.deep_research", "llm.vlm",
-        "llm.bedrock", "llm.provision")} <= mods
+        "llm.bedrock", "llm.provision", "api", "api.http", "api.users",
+        "api.chat_ui", "api.app", "mcp", "mcp.server", "mcp.file_server",
+        "mcp.search_server", "serve", "models.constrain",
+        "tools.mcp_client")} <= mods

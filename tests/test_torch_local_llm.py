@@ -154,16 +154,21 @@ def test_generate_ids_cache_geometry(pair, monkeypatch):
 
 
 def test_unported_paths_raise():
-    _, t = _pair(TINY)
+    j, t = _pair(TINY)
     prompt = t.render(MSGS)
     with pytest.raises(NotImplementedError):
         t.generate_ids(prompt, speculative=True)
     for call in (lambda: t.enable_batching(),
                  lambda: t.register_lora("a", {}),
-                 lambda: LocalLLM.from_hf_dir("model_dir"),
-                 lambda: asyncio.run(t.chat(MSGS, response_schema={
-                     "type": "object"}))):
+                 lambda: LocalLLM.from_hf_dir("model_dir")):
         with pytest.raises(NotImplementedError):
             call()
     with pytest.raises(ValueError):
         asyncio.run(t.chat(MSGS, adapter="none-registered"))
+    # response schemas are ported (tests/test_torch_constrain.py): one
+    # that compile_schema refuses answers prompt-only, as the reference
+    schema = {"type": "object"}
+    got = asyncio.run(t.chat(MSGS, response_schema=schema, max_tokens=6))
+    want = asyncio.run(j.chat(MSGS, response_schema=schema, max_tokens=6))
+    assert got.content == want.content and got.usage == want.usage
+    assert t._constraint_cache[t._schema_key(schema)] is None
