@@ -143,19 +143,39 @@
    published widths with random bf16 weights from a seed, int8 weights
    and int8 KV cache, `attn_kernel=True`:
    `[gen-check]` the int8-KV decode-attention kernel against its plain
-   version at nine cache geometries (the main decode shape with fully
-   masked leading blocks and a fully masked row, B 1 at S 256 and at the
+   version at ten cache geometries (the main decode shape with fully
+   masked leading blocks and a fully masked row, [batch]'s B 8, S 768
+   with a batcher's slot map (prompt pads and scattered decode slots
+   DEAD) and one free row, B 1 at S 256 and at the
    chat's S 1024, S 288, KVH 8 / hd 128, G 7 and G 16, and K/V bytes
    running through -128..127, once more with one visible slot a row,
    which must match bit for bit); `[gen-time]` its kernel (on a cache
    that stays in L2 and on caches read cold), plain and library times
-   beside its bytes bound, at the main decode shape and the chat's B 1;
+   beside its bytes bound, at the main decode shape, [batch]'s B 8, S 768
+   and the chat's B 1;
    `[gen-main]` `generate` at batch 64, prompt
    896, 128 new tokens (prefill ms, decode ms/step, tokens/s, peak
    memory, the kernel's launch count against the loop's), 4 decode steps
    of the kernel path against the einsum path, a profiled decode step,
    and one `LocalLLM.chat` and one `stream` at B 1 whose texts must be
-   equal.
+   equal; then `[batch]`: `LocalLLM.enable_batching(slots=8,
+   prompt_pad=256, horizon=512, chunk=64, lookahead=2)` on those weights
+   (`serve_vocab`, [SEP]'s LM-head column zeroed so greedy decodes never
+   stop early), a 64-token system header through
+   `register_prefix_text`, one warm-up chat, then 16 chats of 256-token
+   prompts x 128 new tokens at once through `LocalLLM.chat` (tokens/s,
+   p50/p90 latency, steps, compactions >= 1, 16 prefix hits, `stats()`,
+   peak memory; decode_attn launches equal to 22 x the batcher's steps,
+   the first 88 held to plain as they run; 4 requests' tokens
+   teacher-forced in one solo forward, each within GEN_LOGIT_ATOL of its
+   step's top logit); two concurrent streams equal to two concurrent
+   chats (time to the first streamed token); the 16 chats through a
+   `spec_k=4` batcher (tokens a step; all 16 teacher-forced); 4 chats
+   with [serve]'s finite schema beside 4 plain ones in a
+   `sampling_ext=True` batcher (schema-valid, constraint id 1 from the
+   bank, no solo call); 4 solo `generate_ids` one at a time (serialized
+   tokens/s); one `generate_ids(speculative=True)` at B 1, prompt 512 +
+   128 new, beside plain `generate_ids` (teacher-forced).
 9. `[serve]`, the port's HTTP service. Before step 8, the [ingest]
    collection and the [kg] graph are saved as one user space (with an
    account) through `serve.checkpoint_spaces` under build/smoke_serve/.
@@ -201,6 +221,12 @@ alone (its checks and its times), for kernel work on the scan.
 
 runs steps 1-2 and then `[gen-check]` and `[gen-time]` of step 8 alone,
 for kernel work on the decode attention.
+
+    python3 chip_smoke.py --batch
+
+runs steps 1-2, `[gen-check]` and `[gen-time]`, then `[batch]` of step 8
+alone (building the [gen-main] weights), for work on the continuous
+batcher or speculation.
 
     python3 chip_smoke.py --match-prep
 
@@ -354,6 +380,24 @@ SERVE_SCHEMA_NEW = 48  # bytes of its longest sentence, 28, and eos
 SERVE_NEW = 24        # new tokens where a call names no limit
 SERVE_ATTN_CHECKS = 88  # decode_attn launches held to plain (4 steps x 22)
 SERVE_BOOT_S = 300
+
+# [batch]: continuous batching through LocalLLM.enable_batching at the
+# repo's documented batcher setting (docs/decoder.md, examples/
+# tune_batcher.py): 16 chats of 256-token prompts sharing a 64-token
+# system header, 128 new tokens each, 8 slots, horizon 512, chunks of 64,
+# lookahead 2, on [gen-main]'s weights and flags
+BATCH_SLOTS, BATCH_PROMPT, BATCH_HORIZON = 8, 256, 512
+BATCH_CHUNK, BATCH_LOOKAHEAD = 64, 2
+BATCH_REQS, BATCH_NEW, BATCH_HEADER = 16, 128, 64
+BATCH_CHECKED = 4        # requests teacher-forced against one solo forward
+BATCH_ATTN_CHECKS = 88   # decode_attn launches held to plain (4 steps x 22)
+BATCH_STREAM_NEW = 64    # new tokens of the two streams and their chats
+BATCH_SPEC_K = 4
+BATCH_EXT = 4            # constrained chats (and as many plain) in one batch
+BATCH_SOLO = 4           # solo generate_ids runs, one at a time
+BATCH_SOLO_PROMPT = 512  # solo speculation at B 1
+# [batch]'s decode-step attention: (B, S, KVH, G, hd), S = 256 + 512
+BATCH_ATTN = (BATCH_SLOTS, BATCH_PROMPT + BATCH_HORIZON, 4, 8, 64)
 
 
 def log(msg: str) -> None:
@@ -3009,6 +3053,30 @@ def attn_byte_inputs(dev, B, S, KVH, G, hd, seed, one_visible=False):
     return qg, {"q": k8, "s": ks}, {"q": v8, "s": vs}, mask
 
 
+def batch_attn_inputs(dev, B, S, KVH, G, hd, seed, prompt_pad=BATCH_PROMPT):
+    """Queries and an int8 cache as `attn_inputs` makes them, and the
+    visibility mask of a batcher's decode step: each row's prompt slots
+    [0, plen) live and its pad slots DEAD, decode slots from prompt_pad on
+    with scattered DEAD gaps (rejected speculative slots, compacted
+    rows), the query at the row's next position; the last row free
+    (every slot DEAD, masked whole)."""
+    import torch
+
+    qg, ck, cv, _ = attn_inputs(dev, B, S, KVH, G, hd, seed)
+    rng = np.random.default_rng(seed)
+    slot_pos = np.full((B, S), 2 ** 30, np.int64)
+    for b in range(B - 1):
+        plen = int(rng.integers(prompt_pad // 2, prompt_pad + 1))
+        slot_pos[b, :plen] = np.arange(plen)
+        n_dec = S - prompt_pad - 64 * (b % 3)
+        live = rng.random(n_dec) > 0.35
+        slot_pos[b, prompt_pad:prompt_pad + n_dec] = np.where(
+            live, plen + np.cumsum(live) - 1, 2 ** 30)
+    pos = np.where(slot_pos < 2 ** 30, slot_pos, -1).max(axis=1)
+    mask = torch.from_numpy(slot_pos <= pos[:, None]).to(dev)
+    return qg, ck, cv, mask
+
+
 def one_slot_output(args):
     """The output when each row sees one slot: p = 1 and l = 1 there, so
     every head of a kv head gets bf16(bf16(v_scale) * v8) of that slot."""
@@ -3024,20 +3092,23 @@ def one_slot_output(args):
 
 
 def check_decode_attn(dev):
-    """Kernel vs plain at nine geometries; each case within 2 bf16 ulps of
+    """Kernel vs plain at ten geometries; each case within 2 bf16 ulps of
     max|out| (the kernel rounds p*v_scale against its chunk's max, the
     plain version against the row's), fully masked rows exactly 0. The
     case with one visible slot a row must equal the plain version and
     bf16(bf16(v_scale) * v8) bit for bit: every byte value goes through
     the kernel's conversion once there, and nothing else rounds. Returns
-    (worst max abs err, main-shape inputs)."""
+    (worst max abs err, main-shape inputs, [batch]-shape inputs)."""
     import torch
 
     from rag_application_tpu_torch.ops import decode_attn as da
 
-    worst, main = 0.0, None
+    worst, main, batch = 0.0, None, None
     cases = [("main decode shape, masked prefix + empty row", ATTN_MAIN,
-              "masked"), ("B 1, S 256", (1, 256, 4, 8, 64), "random"),
+              "masked"),
+             ("[batch]'s shape, a batcher's DEAD gaps + a free row",
+              BATCH_ATTN, "batch"),
+             ("B 1, S 256", (1, 256, 4, 8, 64), "random"),
              ("S 288 (no multiple of 256)", (GEN_B, 288, 4, 8, 64), "random"),
              ("KVH 8, hd 128", (8, 1024, 8, 4, 128), "masked"),
              ("G 7 (a padded head tile)", (16, 1024, 4, 7, 64), "masked"),
@@ -3050,6 +3121,8 @@ def check_decode_attn(dev):
         if kind in ("bytes", "one"):
             args = attn_byte_inputs(dev, B, S, KVH, G, hd, 11 + i,
                                     one_visible=kind == "one")
+        elif kind == "batch":
+            args = batch_attn_inputs(dev, B, S, KVH, G, hd, 11 + i)
         else:
             args = attn_inputs(dev, B, S, KVH, G, hd, 11 + i,
                                kind == "masked")
@@ -3075,13 +3148,15 @@ def check_decode_attn(dev):
         worst = max(worst, err)
         if i == 0:
             main = args
+        if kind == "batch":
+            batch = args
         del args, k_out, p_out
-    return worst, main
+    return worst, main, batch
 
 
-def time_decode_attn(dev, main):
-    """Kernel, plain and library ms at the main decode shape and at the
-    chat's B 1, S 1024, beside the bytes bound. Kernel and library times
+def time_decode_attn(dev, main, batch):
+    """Kernel, plain and library ms at the main decode shape, at [batch]'s
+    B 8, S 768 and at the chat's B 1, S 1024, beside the bytes bound. Kernel and library times
     are device times from the profiler: a call's kernels take less time
     than the wrapper's host work, so CUDA events around back-to-back calls
     measure the host's enqueue rate (logged beside them). The kernel is
@@ -3100,7 +3175,9 @@ def time_decode_attn(dev, main):
 
     out = None
     chat = attn_inputs(dev, 1, CHAT_PROMPT + CHAT_NEW, 4, 8, 64, 31)
-    for label, args in (("main decode shape", main), ("chat, B 1", chat)):
+    for label, args in (("main decode shape", main),
+                        ("[batch]'s decode step, B 8", batch),
+                        ("chat, B 1", chat)):
         qg, ck, cv, mask = args
         B, _, KVH, G, hd = qg.shape
         S = ck["q"].shape[1]
@@ -3330,6 +3407,311 @@ def run_local_llm(params, cfg, dev):
     if not resp.content or text != resp.content:
         raise AssertionError("chat and stream texts differ or are empty")
     return da.decode_attend_int8.launches
+
+
+def batch_header_and_questions(rng, n, vocab):
+    """[batch]'s conversations: one system header of BATCH_HEADER tokens
+    (``[CLS] [UNK] :`` and whole words of `vocab`, `serve_vocab`'s list)
+    shared by every chat, and ``n`` user questions that fill each rendered
+    prompt to exactly BATCH_PROMPT tokens."""
+    whole = [w for w in vocab if w.startswith("w")]
+
+    def words(k):
+        return " ".join(whole[int(i)] for i in rng.integers(0, len(whole), k))
+
+    header = words(BATCH_HEADER - 3)
+    # render: [CLS] system : header user : question assistant : ([SEP] cut)
+    questions = [words(BATCH_PROMPT - BATCH_HEADER - 4) for _ in range(n)]
+    return header, questions
+
+
+def teacher_forced(params, cfg, prompts, outs, dev):
+    """Score each (prompt, output) pair in one solo forward of prompt +
+    output (the einsum path at T = its length): at every step, the gap
+    between that step's top logit and the logit of the token the output
+    chose. Returns (largest gap, share of steps where the token is the
+    argmax)."""
+    import torch
+
+    from rag_application_tpu_torch.models import decoder as dec
+
+    T = max(len(p) + len(o) for p, o in zip(prompts, outs))
+    ids = torch.zeros((len(prompts), T), dtype=torch.int32)
+    for b, (p, o) in enumerate(zip(prompts, outs)):
+        ids[b, :len(p) + len(o)] = torch.tensor(list(p) + list(o))
+    ids = ids.to(dev)
+    ck, cv = dec.init_kv_cache(cfg, len(prompts), T, device=dev)
+    positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(
+        len(prompts), T)
+    with torch.no_grad():
+        x, _, _ = dec.forward(params, cfg, ids, positions, ck, cv)
+        worst, hits, steps = 0.0, 0, 0
+        for b, (p, o) in enumerate(zip(prompts, outs)):
+            if not o:
+                continue
+            lg = dec._project(params, cfg, x[b, len(p) - 1:len(p) - 1 + len(o)])
+            chosen = torch.tensor(o, device=dev).long()
+            gap = lg.max(-1).values - lg.gather(1, chosen[:, None])[:, 0]
+            worst = max(worst, gap.max().item())
+            hits += int((lg.argmax(-1) == chosen).sum())
+            steps += len(o)
+    del ck, cv, x
+    return worst, hits / max(steps, 1)
+
+
+def record_ids(batcher):
+    """Wrap `batcher.submit` (which `LocalLLM.chat` awaits) to keep each
+    request's token ids by prompt; returns the dict it fills."""
+    seen = {}
+    real = batcher.submit
+
+    async def submit(prompt_ids, **kw):
+        out = await real(prompt_ids, **kw)
+        seen[tuple(prompt_ids)] = out
+        return out
+
+    batcher.submit = submit
+    return seen
+
+
+def run_batch(params, cfg, dev):
+    """[batch]: concurrent chats through `LocalLLM.enable_batching` at the
+    repo's documented batcher setting (docs/decoder.md, examples/
+    tune_batcher.py): 8 slots, prompt 256 + horizon 512, chunks of 64,
+    lookahead 2, on [gen-main]'s weights and flags. Returns (decode_attn
+    launches of the main run, max abs err of its checked launches)."""
+    import asyncio
+
+    import torch
+
+    from rag_application_tpu_torch.llm.local import LocalLLM
+    from rag_application_tpu_torch.llm.router import ChatMessage
+    from rag_application_tpu_torch.models.wordpiece import WordPieceTokenizer
+    from rag_application_tpu_torch.ops import decode_attn as da
+
+    words = serve_vocab(cfg.vocab_size)
+    tok = WordPieceTokenizer.from_vocab_list(words, max_len=cfg.max_len)
+    # eos ([SEP]) unreachable for greedy decodes: its LM-head column scaled
+    # to 0, so its logit is 0 against the ~N(0, 1) others (a grammar's
+    # accepting states, where only eos is allowed, still reach it)
+    sep = words.index("[SEP]")
+    head = {"q": params["lm_head"]["q"], "s": params["lm_head"]["s"].clone()}
+    head["s"][sep] = 0.0
+    params = {**params, "lm_head": head}
+    llm = LocalLLM(params, cfg, tok, model_name="tinyllama-1.1b-random",
+                   device=dev)
+    rng = np.random.default_rng(7)
+    header, questions = batch_header_and_questions(rng, BATCH_REQS + 1,
+                                                   words)
+    convs = [[ChatMessage("system", header), ChatMessage("user", q)]
+             for q in questions]
+    prompts = [llm.render(c) for c in convs]
+    if {len(p) for p in prompts} != {BATCH_PROMPT}:
+        raise AssertionError(f"[batch] prompt lengths {set(map(len, prompts))}")
+    warm, main_convs = convs[-1], convs[:BATCH_REQS]
+    prompts = prompts[:BATCH_REQS]
+
+    def batcher(**kw):
+        b = llm.enable_batching(slots=BATCH_SLOTS, prompt_pad=BATCH_PROMPT,
+                                horizon=BATCH_HORIZON, chunk=BATCH_CHUNK,
+                                lookahead=BATCH_LOOKAHEAD, **kw)
+        n = llm.register_prefix_text(f"system: {header}\n")
+        if n != BATCH_HEADER:
+            raise AssertionError(f"[batch] prefix of {n} tokens")
+        return b, record_ids(b)
+
+    async def timed_chat(c, **kw):
+        t0 = time.perf_counter()
+        r = await llm.chat(c, **kw)
+        return r, time.perf_counter() - t0
+
+    async def many(cs, **kw):
+        return await asyncio.gather(*[timed_chat(c, **kw) for c in cs])
+
+    # decode attention: the first BATCH_ATTN_CHECKS launches held to plain
+    # as they run (the cache is written in place after each). While it
+    # stands in for the wrapper, the wrapper counts its launches on it.
+    real_attn = da.decode_attend_int8
+    attn_err = [0.0]
+
+    def attn_checked(*args):
+        out = real_attn(*args)
+        if attn_checked.launches <= BATCH_ATTN_CHECKS:
+            plain = da.decode_attend_int8_plain(*args)
+            err = (out.float() - plain.float()).abs().max().item()
+            if err > 2 * bf16_ulp(plain.float().abs().max().item()):
+                raise AssertionError(f"[batch] decode_attn != plain: {err}")
+            attn_err[0] = max(attn_err[0], err)
+        return out
+
+    attn_checked.launches = 0
+
+    # ---- the main run: BATCH_REQS chats at once, after one warm-up chat
+    # (as examples/tune_batcher.py warms its batcher)
+    b, seen = batcher()
+    asyncio.run(many([warm], max_tokens=BATCH_NEW))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps0, comp0, hits0 = b.steps, b.compactions, b.prefix_hits
+    da.decode_attend_int8 = attn_checked
+    try:
+        t0 = time.perf_counter()
+        res = asyncio.run(many(main_convs, max_tokens=BATCH_NEW))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        da.decode_attend_int8 = real_attn
+    launches = attn_checked.launches
+    steps = b.steps - steps0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    plain_ids = [seen[tuple(p)] for p in prompts]
+    n_tok = sum(r.usage["completion_tokens"] for r, _ in res)
+    lat = [s for _, s in res]
+    log(f"  batched: {BATCH_REQS} chats x {BATCH_NEW} new at once in "
+        f"{wall:.2f} s -> {n_tok / wall:.1f} tokens/s; latency p50 "
+        f"{np.percentile(lat, 50):.2f} s, p90 {np.percentile(lat, 90):.2f} s "
+        f"(host clock); steps {steps} ({wall / steps * 1e3:.1f} ms a step), "
+        f"compactions {b.compactions - comp0}, prefix hits "
+        f"{b.prefix_hits - hits0}; stats() {b.stats()}; peak device memory "
+        f"{peak:.2f} GiB")
+    if n_tok != BATCH_REQS * BATCH_NEW or [len(o) for o in plain_ids] != [
+            BATCH_NEW] * BATCH_REQS:
+        raise AssertionError(f"[batch] {n_tok} tokens, not "
+                             f"{BATCH_REQS * BATCH_NEW}")
+    if b.prefix_hits - hits0 != BATCH_REQS or b.compactions - comp0 < 1:
+        raise AssertionError(f"[batch] prefix hits {b.prefix_hits - hits0}, "
+                             f"compactions {b.compactions - comp0}")
+    want = cfg.num_layers * steps
+    log(f"  decode_attn launches {launches} (the batcher's {steps} T = 1 "
+        f"steps x {cfg.num_layers} layers = {want}); the first "
+        f"{BATCH_ATTN_CHECKS} held to plain, max abs err {attn_err[0]:.3g}")
+    if launches != want:
+        raise AssertionError(f"[batch] decode_attn launched {launches} "
+                             f"times, expected {want}")
+    gap, exact = teacher_forced(params, cfg, prompts[:BATCH_CHECKED],
+                                plain_ids[:BATCH_CHECKED], dev)
+    log(f"  teacher-forced ({BATCH_CHECKED} requests, one solo forward of "
+        f"prompt + output each): largest gap to the step's top logit "
+        f"{gap:.4f} (tolerance {GEN_LOGIT_ATOL}), argmax at {exact:.1%} of "
+        f"steps")
+    if not gap <= GEN_LOGIT_ATOL:
+        raise AssertionError(f"[batch] teacher-forced gap {gap}")
+
+    # ---- streams: two concurrent streams against two concurrent chats,
+    # each pair on a fresh batcher (the same rows and slots, so the same
+    # sums)
+    async def stream_pair(cs):
+        first = []
+
+        async def one(c):
+            t0 = time.perf_counter()
+            parts = []
+            async for d in llm.stream(c, max_tokens=BATCH_STREAM_NEW):
+                if not parts:
+                    first.append(time.perf_counter() - t0)
+                parts.append(d)
+            return "".join(parts)
+
+        return await asyncio.gather(*[one(c) for c in cs]), first
+
+    batcher()
+    chats = [r.content for r, _ in asyncio.run(
+        many(main_convs[:2], max_tokens=BATCH_STREAM_NEW))]
+    batcher()
+    streamed, ttft = asyncio.run(stream_pair(main_convs[:2]))
+    log(f"  streams: 2 at once, {BATCH_STREAM_NEW} new each, texts equal "
+        f"to 2 chats at once: {streamed == chats}; time to the first "
+        f"streamed token {[round(t, 2) for t in ttft]} s")
+    if streamed != chats or not all(chats):
+        raise AssertionError("[batch] streamed texts != chat texts")
+
+    # ---- speculation: the same chats through a spec_k batcher
+    bs, seen_s = batcher(spec_k=BATCH_SPEC_K)
+    t0 = time.perf_counter()
+    asyncio.run(many(main_convs, max_tokens=BATCH_NEW))
+    torch.cuda.synchronize()
+    spec_wall = time.perf_counter() - t0
+    spec_ids = [seen_s[tuple(p)] for p in prompts]
+    gap_s, exact_s = teacher_forced(params, cfg, prompts, spec_ids, dev)
+    same_s = sum(a == b_ for a, b_ in zip(spec_ids, plain_ids))
+    log(f"  speculative batcher (spec_k {BATCH_SPEC_K}): {BATCH_REQS} x "
+        f"{BATCH_NEW} in {spec_wall:.2f} s -> "
+        f"{sum(map(len, spec_ids)) / spec_wall:.1f} tokens/s; {bs.steps} "
+        f"steps ({spec_wall / max(bs.steps, 1) * 1e3:.1f} ms a step) against "
+        f"the plain batcher's {steps}, {bs.compactions} compactions, "
+        f"stats() {bs.stats()}; teacher-forced gap "
+        f"{gap_s:.4f}, argmax at {exact_s:.1%}; {same_s} of {BATCH_REQS} "
+        f"equal to the plain batcher's tokens")
+    if not gap_s <= GEN_LOGIT_ATOL or [len(o) for o in spec_ids] != [
+            BATCH_NEW] * BATCH_REQS:
+        raise AssertionError(f"[batch] speculative batcher gap {gap_s}")
+
+    # ---- sampling_ext: constrained chats inside the batch, beside plain
+    be, _ = batcher(sampling_ext=True)
+    short = [[ChatMessage("user", " ".join(q.split()[:24]))]
+             for q in questions[:2 * BATCH_EXT]]
+    solo_calls = [0]
+    real_gen = llm.generate_ids
+
+    def counted_gen(*a, **kw):
+        solo_calls[0] += 1
+        return real_gen(*a, **kw)
+
+    async def ext_mix():
+        return await asyncio.gather(
+            *[llm.chat(c, response_schema=SERVE_SCHEMA,
+                       max_tokens=SERVE_SCHEMA_NEW)
+              for c in short[:BATCH_EXT]],
+            *[llm.chat(c, max_tokens=SERVE_SCHEMA_NEW)
+              for c in short[BATCH_EXT:]])
+
+    llm.generate_ids = counted_gen
+    try:
+        ext = asyncio.run(ext_mix())
+    finally:
+        del llm.generate_ids
+    docs = [json.loads(r.content) for r in ext[:BATCH_EXT]]
+    cid = llm._constraint_cid_for(SERVE_SCHEMA)
+    log(f"  sampling_ext batcher: {BATCH_EXT} constrained chats beside "
+        f"{BATCH_EXT} plain ones in {be.steps} steps, constraint id {cid} "
+        f"from the bank ({sum(c is not None for c in be._cslots)} slot "
+        f"filled), solo calls {solo_calls[0]}; documents {docs}")
+    if (solo_calls[0] or cid != 1 or any(
+            set(d) != set(SERVE_SCHEMA["properties"])
+            or d["kind"] not in ("alpha", "beta")
+            or not isinstance(d["ok"], bool) for d in docs)):
+        raise AssertionError(f"[batch] constrained chats {docs}")
+
+    # ---- serialized: BATCH_SOLO of the requests one at a time, solo
+    t0 = time.perf_counter()
+    solo = [llm.generate_ids(p, max_new=BATCH_NEW)
+            for p in prompts[:BATCH_SOLO]]
+    torch.cuda.synchronize()
+    solo_wall = time.perf_counter() - t0
+    log(f"  serialized: {BATCH_SOLO} solo generate_ids x {BATCH_NEW} new in "
+        f"{solo_wall:.2f} s -> {sum(map(len, solo)) / solo_wall:.1f} "
+        f"tokens/s, against {n_tok / wall:.1f} batched; "
+        f"{sum(a == b_ for a, b_ in zip(solo, plain_ids))} of {BATCH_SOLO} "
+        f"equal to the batcher's tokens")
+
+    # ---- solo speculation at B 1, prompt BATCH_SOLO_PROMPT
+    long_prompt = (prompts[0] + prompts[1][BATCH_HEADER:]
+                   + prompts[2][BATCH_HEADER:])[:BATCH_SOLO_PROMPT]
+    t0 = time.perf_counter()
+    plain1 = llm.generate_ids(long_prompt, max_new=BATCH_NEW)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    spec1 = llm.generate_ids(long_prompt, max_new=BATCH_NEW, speculative=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    gap1, exact1 = teacher_forced(params, cfg, [long_prompt], [spec1], dev)
+    log(f"  solo speculation, B 1, prompt {len(long_prompt)} + {BATCH_NEW}: "
+        f"{t2 - t1:.2f} s against plain generate_ids {t1 - t0:.2f} s; equal "
+        f"tokens {spec1 == plain1}; teacher-forced gap {gap1:.4f}, argmax at "
+        f"{exact1:.1%}")
+    if not gap1 <= GEN_LOGIT_ATOL or len(spec1) != BATCH_NEW:
+        raise AssertionError(f"[batch] solo speculation gap {gap1}")
+    return launches, attn_err[0]
 
 
 def ann_corpus(dev):
@@ -4660,11 +5042,41 @@ def attn_only(dev, card) -> int:
     """`--attn`: the decode-attention kernel's checks and times alone, for
     kernel work on it (no tables, search, write path or generation)."""
     log("[gen-check] decode_attn kernel vs plain on the card")
-    err, args = check_decode_attn(dev)
+    err, args, batch = check_decode_attn(dev)
     log(f"[gen-check] every case held; max abs err {err:.3g}")
-    log(f"[gen-time] decode_attn at the main decode shape and the chat's "
-        f"({card})")
-    time_decode_attn(dev, args)
+    log(f"[gen-time] decode_attn at the main decode shape, [batch]'s and "
+        f"the chat's ({card})")
+    time_decode_attn(dev, args, batch)
+    log(card)
+    return 0
+
+
+def batch_phase(params, cfg, dev, card):
+    """[batch], logged with its time; returns `run_batch`'s."""
+    t0 = time.perf_counter()
+    log(f"[batch] LocalLLM.enable_batching(slots={BATCH_SLOTS}, prompt_pad="
+        f"{BATCH_PROMPT}, horizon={BATCH_HORIZON}, chunk={BATCH_CHUNK}, "
+        f"lookahead={BATCH_LOOKAHEAD}), {BATCH_REQS} chats x {BATCH_NEW} new "
+        f"sharing a {BATCH_HEADER}-token prefix, TinyLlama-1.1B widths, int8 "
+        f"weights + int8 KV, attn_kernel ({card})")
+    out = run_batch(params, cfg, dev)
+    log(f"[batch] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def batch_only(dev, card) -> int:
+    """`--batch`: the decode-attention kernel's checks and times, then
+    [batch] alone (with the [gen-main] weights built here)."""
+    import torch
+
+    from rag_application_tpu_torch.models import decoder as dec
+
+    attn_only(dev, card)
+    torch.cuda.empty_cache()
+    cfg = dec.DecoderConfig(**GEN_CFG)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = dec.quantize_decoder_params(dec.init_decoder_params(g, cfg, dev))
+    batch_phase(params, cfg, dev, card)
     log(card)
     return 0
 
@@ -4751,6 +5163,8 @@ def main() -> int:
         return agents_only(dev, card)
     if sys.argv[1:] == ["--serve"]:
         return serve_only(dev, card)
+    if sys.argv[1:] == ["--batch"]:
+        return batch_only(dev, card)
 
     from rag_application_tpu_torch.ops import quant as oq
 
@@ -4839,11 +5253,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("[gen-check] decode_attn kernel vs plain on the card")
-    attn_err, attn_args = check_decode_attn(dev)
-    log(f"[gen-time] decode_attn at the main decode shape and the chat's "
-        f"({card})")
-    attn_t = time_decode_attn(dev, attn_args)
-    del attn_args
+    attn_err, attn_args, batch_args = check_decode_attn(dev)
+    log(f"[gen-time] decode_attn at the main decode shape, [batch]'s and "
+        f"the chat's ({card})")
+    attn_t = time_decode_attn(dev, attn_args, batch_args)
+    del attn_args, batch_args
     torch.cuda.empty_cache()
     log(f"[gen-main] generate, TinyLlama-1.1B widths, {GEN_B} x {GEN_T} + "
         f"{GEN_NEW}, int8 weights + int8 KV, attn_kernel ({card})")
@@ -4851,6 +5265,9 @@ def main() -> int:
     compare_attention_paths(params, gcfg, gen_ids)
     torch.cuda.empty_cache()
     run_local_llm(params, gcfg, dev)
+    torch.cuda.empty_cache()
+    batch_launches, batch_attn_err = batch_phase(params, gcfg, dev, card)
+    attn_err = max(attn_err, batch_attn_err)
     torch.cuda.empty_cache()
     serve_errs, serve_launches, serve_attn_err = serve_phase(
         emb, dev, (params, gcfg), serve_ckpt, card)
@@ -4883,7 +5300,8 @@ def main() -> int:
               + serve_launches["bm25_match"], bm25_err, bm25_t),
         entry("decode_attn", "rag_application_tpu_torch/csrc/decode_attn.cu",
               "rag_application_tpu/ops/decode_attn.py:86",
-              attn_launches + serve_launches["decode_attn"], attn_err,
+              attn_launches + batch_launches + serve_launches["decode_attn"],
+              attn_err,
               attn_t),
         entry("prep_vectors", "rag_application_tpu_torch/csrc/prep_vectors.cu",
               "rag_application_tpu/ops/quant.py:66",

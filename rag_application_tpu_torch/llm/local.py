@@ -5,24 +5,30 @@ port's decoder (models/decoder.py) to the router's chat interface, so
 anything that speaks `LLMRouter` can generate on the local card
 (`Provider.LOCAL`). Two solo paths, as in the reference:
 
-  * `chat`: `generate` — prefill plus the decode loop for one prompt;
+  * `chat`: `generate` — prefill plus the decode loop for one prompt
+    (`speculative=True`: prompt-lookup block verification,
+    models/speculative.py);
   * `stream`: a single-token step per yield (time to first token =
     prefill + one step), or, for penalized/biased requests, the
     penalty-aware `generate` streamed by incremental re-detokenization.
 
 Both run the blocking device work in an executor so the serving event
-loop stays free.
+loop stays free. After `enable_batching`, concurrent `chat` and `stream`
+calls whose knobs match the batcher's share ONE decode batch
+(llm/scheduler.py); with `sampling_ext=True`, constrained, penalized and
+biased requests join it too.
 
 `chat(response_schema=)` appends the reference's schema instruction and,
 when the schema compiles for this vocabulary (models/constrain.py),
 grammar-constrains the decode; a schema `compile_schema` refuses stays
 prompt-only, as in the reference.
 
-Not ported yet, and raising until their modules are: continuous batching
-(`enable_batching`, llm/scheduler.py), prompt-lookup speculation
-(`speculative=True`, models/speculative.py), multi-LoRA serving
-(`register_lora`, models/lora.py) and checkpoint loading
-(`from_hf_dir`, which needs `transformers` and a model directory).
+`from_hf_dir` loads a local LLaMA-family checkpoint directory through
+`transformers` (imported when called; the package is needed only there).
+
+Not ported yet, and raising until its module is: multi-LoRA serving
+(`register_lora`, `from_hf_dir(lora_path=)`, the `adapter` chat
+parameter; models/lora.py).
 """
 
 from __future__ import annotations
@@ -35,11 +41,13 @@ import torch
 
 from ..models.decoder import (
     DecoderConfig,
+    convert_hf_llama_state_dict,
     generate,
     generate_logprobs,
     init_kv_cache,
     make_decode_step,
     prefill,
+    quantize_decoder_params,
     sample_logits,
     score_continuations,
 )
@@ -67,6 +75,8 @@ class LocalLLM:
         self.params = _to_device(params, self.device)
         self.cfg = cfg
         self.tokenizer = tokenizer
+        # greedy solo requests use prompt-lookup block verification
+        # (models/speculative.py) when enabled
         self.speculative = bool(speculative)
         # WordPiece ends every encoded turn with [SEP]; that IS the
         # natural end-of-turn marker, so it doubles as eos
@@ -78,18 +88,103 @@ class LocalLLM:
         self.pad_id = int(getattr(tokenizer, "pad_id", 0) or 0)
         self.model_name = model_name
         self._step = None  # lazy streaming step
+        self._batcher = None  # optional continuous batcher (enable_batching)
         self._constraint_cache: Dict[str, Optional[Any]] = {}
         self._constraint_dev: Dict[str, Dict[str, Any]] = {}
 
     @classmethod
-    def from_hf_dir(cls, model_dir: str, **kw) -> "LocalLLM":
-        raise NotImplementedError(
-            "LocalLLM.from_hf_dir is not ported yet: build the params with "
-            "models.decoder.convert_hf_llama_state_dict")
+    def from_hf_dir(cls, model_dir: str, *, max_len: int = 1024,
+                    dtype: str = "bfloat16", quantize: bool = False,
+                    kv_quant: bool = False, lora_path: str = "",
+                    lora_alpha: float = 16.0, device: DeviceLike = None,
+                    **kw) -> "LocalLLM":
+        """Load a local LLaMA-family HF checkpoint directory (never
+        downloads). `quantize=True` serves weight-only int8;
+        `kv_quant=True` stores the KV cache as int8 rows + per-row scales
+        (models/decoder.py). `lora_path` (merging trained LoRA factors at
+        load) raises until models/lora.py is ported."""
+        if lora_path:
+            raise NotImplementedError(
+                "from_hf_dir(lora_path=): merging LoRA adapters is not "
+                "ported yet (models/lora.py)")
+        from transformers import (
+            AutoConfig,
+            AutoModelForCausalLM,
+            AutoTokenizer,
+        )
 
-    def enable_batching(self, **kw):
-        raise NotImplementedError(
-            "continuous batching is not ported yet (llm/scheduler.py)")
+        hf_cfg = AutoConfig.from_pretrained(model_dir, local_files_only=True)
+        rs = getattr(hf_cfg, "rope_scaling", None) or {}
+        kind = rs.get("rope_type", rs.get("type", "none")) if rs else "none"
+        if kind in ("default",):
+            kind = "none"
+        if kind not in ("none", "linear", "llama3"):
+            raise ValueError(
+                f"unsupported rope_scaling type {kind!r} (supported: "
+                "linear, llama3)")
+        cfg = DecoderConfig(
+            vocab_size=hf_cfg.vocab_size, hidden=hf_cfg.hidden_size,
+            num_layers=hf_cfg.num_hidden_layers,
+            heads=hf_cfg.num_attention_heads,
+            kv_heads=getattr(hf_cfg, "num_key_value_heads",
+                             hf_cfg.num_attention_heads),
+            mlp_dim=hf_cfg.intermediate_size,
+            max_len=min(max_len, hf_cfg.max_position_embeddings),
+            rope_theta=getattr(hf_cfg, "rope_theta", 10000.0),
+            rope_kind=kind,
+            rope_factor=float(rs.get("factor", 1.0)),
+            rope_low_freq_factor=float(rs.get("low_freq_factor", 1.0)),
+            rope_high_freq_factor=float(rs.get("high_freq_factor", 4.0)),
+            rope_original_max_len=int(rs.get(
+                "original_max_position_embeddings",
+                hf_cfg.max_position_embeddings)),
+            eps=getattr(hf_cfg, "rms_norm_eps", 1e-6), dtype=dtype,
+            kv_quant=kv_quant)
+        model = AutoModelForCausalLM.from_pretrained(
+            model_dir, local_files_only=True)
+        params = convert_hf_llama_state_dict(model.state_dict(), cfg,
+                                             device=device)
+        del model
+        if quantize:
+            params = quantize_decoder_params(params)
+        tok = AutoTokenizer.from_pretrained(model_dir, local_files_only=True)
+        return cls(params, cfg, tok, eos_id=tok.eos_token_id, device=device,
+                   **kw)
+
+    def enable_batching(self, *, slots: int = 8, prompt_pad: int = 256,
+                        horizon: int = 512, chunk: int = 8,
+                        temperature: float = 0.0, top_k: int = 64,
+                        top_p: float = 1.0, seed: int = 0,
+                        spec_k: int = 0, **batcher_kw):
+        """Route `chat` and `stream` through a continuous batcher: N
+        concurrent requests share ONE decode batch on the card
+        (llm/scheduler.py). Sampling knobs are fixed per batcher; a call
+        whose knobs differ falls back to the solo path. `spec_k`>0 adds
+        prompt-lookup speculative blocks to every batch step. Returns the
+        batcher."""
+        from .scheduler import ContinuousBatcher
+
+        self._batcher = ContinuousBatcher(
+            self.params, self.cfg, slots=slots, prompt_pad=prompt_pad,
+            horizon=horizon, chunk=chunk, temperature=temperature,
+            top_k=top_k, top_p=top_p, seed=seed, spec_k=spec_k,
+            **batcher_kw)
+        return self._batcher
+
+    def register_prefix_text(self, text: str) -> int:
+        """Prefix-cache a shared prompt header with the batcher: its K/V
+        is computed once and every admission whose rendered prompt starts
+        with it prefills only the suffix. The text must end on a token
+        boundary of the render format (e.g. a full "system: ...\\n" line)
+        so `encode(prefix+rest)` starts with `encode(prefix)`. Returns the
+        prefix length in tokens."""
+        if self._batcher is None:
+            raise RuntimeError("enable_batching() first")
+        ids = self.tokenizer.encode(text)
+        if ids and ids[-1] == self.eos_id:
+            ids = ids[:-1]
+        self._batcher.register_prefix(ids)
+        return len(ids)
 
     def register_lora(self, name: str, adapters_or_path, *,
                       alpha: float = 16.0) -> int:
@@ -145,6 +240,20 @@ class LocalLLM:
             self._constraint_dev[key] = c.as_device(self.device)
         return self._constraint_dev[key]
 
+    def _constraint_cid_for(self, schema) -> Optional[int]:
+        """Batcher constraint_id for the schema; None when the schema is
+        unsupported OR the batcher's constraint bank is full of pinned
+        slots (callers then take the solo constrained path). The batcher
+        memoizes registration by constraint identity and LRU-evicts free
+        slots, so calling this per request is O(1)."""
+        c = self._constraint_host_for(schema)
+        if c is None:
+            return None
+        try:
+            return self._batcher.register_constraint(c)
+        except ValueError:
+            return None
+
     # ------------------------------------------------------------- prompt
 
     def render(self, messages: Sequence[Any]) -> List[int]:
@@ -178,6 +287,21 @@ class LocalLLM:
                 text = text[:cut]
         return text
 
+    def _delta(self, produced: Sequence[int], emitted: str,
+               stop) -> Tuple[str, str, bool]:
+        """Incremental re-detokenization for `stream`: the text of
+        `produced` past what was `emitted` (multi-piece words come out
+        once whole), the new emitted text, and whether a stop string
+        ended the stream."""
+        text = self._decode(produced)
+        if stop:
+            clipped = self._apply_stop(text, stop)
+            if clipped != text:
+                return clipped[len(emitted):], emitted, True
+        if text[: len(emitted)] == emitted:
+            return text[len(emitted):], text, False
+        return "", emitted, False
+
     # ---------------------------------------------------------- inference
 
     def generate_ids(self, prompt_ids: Sequence[int], *,
@@ -188,21 +312,27 @@ class LocalLLM:
                      frequency: float = 0.0, constraint=None,
                      logit_bias=None) -> List[int]:
         """Blocking generation for one prompt, padded to a power-of-two
-        bucket. `speculative=True` (prompt-lookup verification) raises
-        until models/speculative.py is ported."""
+        bucket. `speculative=True` routes plain requests through
+        prompt-lookup block verification (models/speculative.py): greedy
+        output is the argmax of the same logits, and sampled output draws
+        from the identical filtered distribution."""
         n = len(prompt_ids)
         max_new = max(1, min(max_new, self.cfg.max_len - n))
         ids = self._bucketed(prompt_ids)
         if (speculative and lora is None and constraint is None
                 and logit_bias is None and not (presence or frequency)):
-            raise NotImplementedError(
-                "speculative decoding is not ported yet "
-                "(models/speculative.py)")
-        out, _ = generate(
-            self.params, self.cfg, ids, np.asarray([n], np.int32),
-            max_new, self.eos_id, self.pad_id, self._generator(seed),
-            float(temperature), int(top_k), float(top_p), lora,
-            float(presence), float(frequency), constraint, logit_bias)
+            from ..models.speculative import generate_lookup
+
+            out, _ = generate_lookup(
+                self.params, self.cfg, ids, np.asarray([n], np.int32),
+                max_new, self.eos_id, self.pad_id, self._generator(seed), 4,
+                float(temperature), int(top_k), float(top_p))
+        else:
+            out, _ = generate(
+                self.params, self.cfg, ids, np.asarray([n], np.int32),
+                max_new, self.eos_id, self.pad_id, self._generator(seed),
+                float(temperature), int(top_k), float(top_p), lora,
+                float(presence), float(frequency), constraint, logit_bias)
         out = out[0].cpu().numpy()
         return [int(t) for t in out if int(t) != self.pad_id
                 and int(t) != self.eos_id]
@@ -294,15 +424,46 @@ class LocalLLM:
         presence = float(params.get("presence_penalty") or 0.0)
         frequency = float(params.get("frequency_penalty") or 0.0)
         logit_bias = self._logit_bias(params)
+        # a schema only "wants" the ext batcher when it actually compiles
+        # to a constraint — rejected schemas (prompt-only fallback) would
+        # otherwise forfeit the shared batch for nothing
+        has_constraint = (response_schema is not None and
+                          self._constraint_host_for(response_schema)
+                          is not None)
+        wants_ext = bool(presence or frequency or logit_bias is not None
+                         or has_constraint)
         lp_out = None
         loop = asyncio.get_running_loop()
         if params.get("logprobs"):
+            # logprobs ride the solo loop (the batcher does not thread
+            # per-token scores through its chunks)
             out_ids, lps = await loop.run_in_executor(
                 None, lambda: self.generate_ids_logprobs(
                     prompt, max_new=max_new, temperature=temperature,
                     top_p=top_p, seed=seed))
             lp_out = [{"token": self.tokenizer.decode([t]),
                        "logprob": l} for t, l in zip(out_ids, lps)]
+        elif (not wants_ext
+              and self._batch_eligible(prompt, max_new, params, temperature,
+                                       top_p)):
+            out_ids = await self._batcher.submit(
+                prompt, max_new=max_new, eos_id=self.eos_id)
+        elif (wants_ext and self._batcher is not None
+              and self._batcher.sampling_ext
+              and self._batch_eligible(prompt, max_new, params, temperature,
+                                       top_p)
+              and (not has_constraint
+                   or (cid := self._constraint_cid_for(response_schema))
+                   is not None)):
+            # extended sampling THROUGH the shared batch (scheduler
+            # sampling_ext). A compilable schema that cannot get a bank
+            # slot (bank full of pinned constraints) drops to the solo
+            # branch so the grammar guarantee holds.
+            out_ids = await self._batcher.submit(
+                prompt, max_new=max_new, eos_id=self.eos_id,
+                constraint_id=(cid if has_constraint else 0),
+                presence=presence, frequency=frequency,
+                logit_bias=logit_bias)
         else:
             # grammar-constrain the decode whenever the schema compiles
             # — the instruction above tells the model WHAT to write,
@@ -322,10 +483,30 @@ class LocalLLM:
                                   "total_tokens": len(prompt) + len(out_ids)},
                            logprobs=lp_out)
 
+    def _batch_eligible(self, prompt, max_new, params, temperature,
+                        top_p) -> bool:
+        """A request rides the shared batch only when every sampling knob
+        matches the batcher's AND the prompt fits prompt_pad (submit clips
+        to the LAST prompt_pad tokens — a longer prompt would silently
+        lose its head, i.e. the system prompt). Everything else falls back
+        to the solo path."""
+        b = self._batcher
+        if b is None:
+            return False
+        if temperature != b.temperature or top_p != b.top_p:
+            return False
+        if int(params.get("top_k") or b.top_k) != b.top_k:
+            return False
+        if temperature > 0 and params.get("seed") is not None:
+            return False  # explicit seed: honor it via the solo path
+        return len(prompt) <= b.T and len(prompt) + max_new <= b.S
+
     async def stream(self, messages: Sequence[Any],
                      **params: Any) -> AsyncIterator[str]:
         """Token-at-a-time decode: each yield is the newly produced text
-        (incremental re-detokenization keeps multi-piece words right)."""
+        (incremental re-detokenization keeps multi-piece words right).
+        With batching enabled, concurrent streams share one decode batch
+        (time-to-next-token bounded by the chunk size)."""
         prompt = self.render(messages)
         max_new = max(1, min(int(params.get("max_tokens") or 128),
                              self.cfg.max_len - len(prompt)))
@@ -337,8 +518,25 @@ class LocalLLM:
         presence = float(params.get("presence_penalty") or 0.0)
         frequency = float(params.get("frequency_penalty") or 0.0)
         logit_bias = self._logit_bias(params)
+        wants_ext = bool(presence or frequency or logit_bias is not None)
+        if (self._batch_eligible(prompt, max_new, params, temperature, top_p)
+                and (not wants_ext or self._batcher.sampling_ext)):
+            produced: List[int] = []
+            emitted = ""
+            async for tok in self._batcher.submit_stream(
+                    prompt, max_new=max_new, eos_id=self.eos_id,
+                    presence=presence, frequency=frequency,
+                    logit_bias=logit_bias):
+                produced.append(tok)
+                delta, emitted, stopped = self._delta(produced, emitted,
+                                                      stop)
+                if delta:
+                    yield delta
+                if stopped:
+                    return
+            return
 
-        if presence or frequency or logit_bias is not None:
+        if wants_ext:
             # the per-token step below has no penalty state, so it would
             # apply a DIFFERENT sampling law than chat() for these knobs:
             # run the penalty-aware generate and stream its output by
@@ -350,19 +548,12 @@ class LocalLLM:
                     frequency=frequency, logit_bias=logit_bias))
             emitted = ""
             for k in range(1, len(out_ids) + 1):
-                text = self._decode(out_ids[:k])
-                if stop:
-                    clipped = self._apply_stop(text, stop)
-                    if clipped != text:
-                        delta = clipped[len(emitted):]
-                        if delta:
-                            yield delta
-                        return
-                if text[: len(emitted)] == emitted:
-                    delta = text[len(emitted):]
-                    if delta:
-                        yield delta
-                        emitted = text
+                delta, emitted, stopped = self._delta(out_ids[:k], emitted,
+                                                      stop)
+                if delta:
+                    yield delta
+                if stopped:
+                    return
             return
 
         if self._step is None:
@@ -389,19 +580,11 @@ class LocalLLM:
             if tok == self.eos_id:
                 break
             produced.append(tok)
-            text = self._decode(produced)
-            if stop:
-                clipped = self._apply_stop(text, stop)
-                if clipped != text:
-                    delta = clipped[len(emitted):]
-                    if delta:
-                        yield delta
-                    return
-            if text[: len(emitted)] == emitted:
-                delta = text[len(emitted):]
-                if delta:
-                    yield delta
-                    emitted = text
+            delta, emitted, stopped = self._delta(produced, emitted, stop)
+            if delta:
+                yield delta
+            if stopped:
+                return
             if step == max_new - 1:
                 break
             tok_a, ck, cv = await loop.run_in_executor(

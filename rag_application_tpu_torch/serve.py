@@ -3,8 +3,11 @@
 Port of `rag_application_tpu/serve.py`. The app and its user spaces run
 on ``cuda`` (which raises without a card); ``RAGTPU_PLATFORM=cpu`` asks
 for the CPU. `restore_spaces`/`checkpoint_spaces` load and save on the
-app's device. `RAGTPU_LLM_PROVIDER=local` reaches `LocalLLM.from_hf_dir`,
-which raises until it is ported, as do batching and LoRA serving.
+app's device. `RAGTPU_LLM_PROVIDER=local` loads `LocalLLM.from_hf_dir`
+(which needs `transformers`); its `RAGTPU_LOCAL_BATCH_*` settings turn on
+continuous batching and `RAGTPU_LOCAL_SPECULATIVE=1` prompt-lookup
+speculation. LoRA serving (`RAGTPU_LOCAL_LORA*`) raises until
+models/lora.py is ported.
 
 Boots the full stack the way the reference's docker-compose assembles its
 services (app/main.py lifespan: connect stores, spawn background tasks) —

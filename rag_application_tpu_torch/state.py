@@ -9,8 +9,9 @@ arrays; bf16 planes arrive as `ml_dtypes.bfloat16`, which
 `torch.from_numpy` refuses, so they are carried as their ``.view(np.uint16)``
 bits and rebuilt with ``.view(torch.bfloat16)``. The decoder's and the
 text encoder's weights are carried the same way (`decoder_params_from_jax`,
-`encoder_params_from_jax`), so both packages run the same model. This
-module imports no JAX.
+`encoder_params_from_jax`, and `bert_params_from_jax` for the BERT
+encoder), so both packages run the same model. This module imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -185,3 +186,50 @@ def encoder_params_from_jax(params: Mapping[str, Any], cfg: EncoderConfig,
         out[pre + "mlp2_w"] = leaf(lp, "Dense_1", "kernel")
         out[pre + "mlp2_b"] = leaf(lp, "Dense_1", "bias")
     return {name: _tensor(a, dev) for name, a in out.items()}
+
+
+def bert_params_from_jax(params: Mapping[str, Any], device: DeviceLike = None
+                         ) -> Dict[str, torch.Tensor]:
+    """The port's `models.bert.BertEncoder` state (name -> f32 tensor, for
+    `load_state_dict`) from a flax `BertEncoder` param tree given as numpy
+    (with or without the top-level ``"params"``). The q/k/v kernels
+    (hidden, heads, head_dim) and biases (heads, head_dim) become
+    `Linear` weights (out, in) and biases; the output kernel (heads,
+    head_dim, hidden) one (hidden, hidden) weight; Dense kernels (in,
+    out) are transposed."""
+    p = params.get("params", params)
+    dev = resolve_device(device)
+
+    def leaf(*path) -> np.ndarray:
+        node: Any = p
+        for k in path:
+            node = node[k]
+        return np.asarray(node, dtype=np.float32)
+
+    h = leaf("word_emb", "embedding").shape[1]
+    out: Dict[str, np.ndarray] = {
+        "word_emb.weight": leaf("word_emb", "embedding"),
+        "pos_emb.weight": leaf("pos_emb", "embedding"),
+        "type_emb.weight": leaf("type_emb", "embedding"),
+        "emb_ln.weight": leaf("emb_ln", "scale"),
+        "emb_ln.bias": leaf("emb_ln", "bias"),
+    }
+    i = 0
+    while f"layer_{i}" in p:
+        lp, pre = f"layer_{i}", f"layers.{i}."
+        for n in ("query", "key", "value"):
+            out[pre + n + ".weight"] = leaf(lp, "attn", n, "kernel").reshape(
+                h, h).T
+            out[pre + n + ".bias"] = leaf(lp, "attn", n, "bias").reshape(h)
+        out[pre + "out.weight"] = leaf(lp, "attn", "out", "kernel").reshape(
+            h, h).T
+        out[pre + "out.bias"] = leaf(lp, "attn", "out", "bias")
+        for n in ("ffn_in", "ffn_out"):
+            out[pre + n + ".weight"] = leaf(lp, n, "kernel").T
+            out[pre + n + ".bias"] = leaf(lp, n, "bias")
+        for n in ("attn_ln", "ffn_ln"):
+            out[pre + n + ".weight"] = leaf(lp, n, "scale")
+            out[pre + n + ".bias"] = leaf(lp, n, "bias")
+        i += 1
+    return {name: _tensor(np.ascontiguousarray(a), dev)
+            for name, a in out.items()}

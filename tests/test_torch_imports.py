@@ -38,8 +38,9 @@ def test_port_imports_without_jax():
     # vlm), ingest (pipeline and its parsers), tools (registry, web,
     # knowledge, browser, mcp_client), agents, index.ivf, api (http,
     # users, chat_ui, app), mcp (server, file_server, search_server),
-    # serve, models.constrain, utils, config, state, ...
-    assert len(mods) >= 89
+    # serve, models.constrain, llm.scheduler, models.speculative,
+    # models.bert, utils, config, state, ...
+    assert len(mods) >= 92
     assert {f"rag_application_tpu_torch.{m}" for m in (
         "index.checkpoint", "search.batcher", "search.hybrid",
         "search.orchestration", "ops.graph_hop", "kg.store",
@@ -51,4 +52,5 @@ def test_port_imports_without_jax():
         "llm.bedrock", "llm.provision", "api", "api.http", "api.users",
         "api.chat_ui", "api.app", "mcp", "mcp.server", "mcp.file_server",
         "mcp.search_server", "serve", "models.constrain",
-        "tools.mcp_client")} <= mods
+        "tools.mcp_client", "llm.scheduler", "models.speculative",
+        "models.bert")} <= mods

@@ -154,14 +154,14 @@ def test_generate_ids_cache_geometry(pair, monkeypatch):
 
 
 def test_unported_paths_raise():
+    """Only the LoRA paths (models/lora.py) still raise; speculation and
+    batching are ported (tests/test_torch_speculative.py,
+    tests/test_torch_scheduler.py)."""
     j, t = _pair(TINY)
-    prompt = t.render(MSGS)
-    with pytest.raises(NotImplementedError):
-        t.generate_ids(prompt, speculative=True)
-    for call in (lambda: t.enable_batching(),
-                 lambda: t.register_lora("a", {}),
-                 lambda: LocalLLM.from_hf_dir("model_dir")):
-        with pytest.raises(NotImplementedError):
+    for call in (lambda: t.register_lora("a", {}),
+                 lambda: LocalLLM.from_hf_dir("model_dir",
+                                              lora_path="a.npz")):
+        with pytest.raises(NotImplementedError, match="models/lora.py"):
             call()
     with pytest.raises(ValueError):
         asyncio.run(t.chat(MSGS, adapter="none-registered"))
