@@ -5,11 +5,11 @@ Copy of `rag_application_tpu/ingest/pipeline.py`, on the port's
 `Collection` and `KGStore`: every chunk task's `store_document_vectors`
 and every KG row's insert runs the insert prep kernel
 (`ops/quant.py::prepare_vectors_into`) on the collection's device. The
-image and audio branches keep their lazy imports of `models.image` and
-`models.audio`, which the port does not have yet; the port's `Embedder`
-reports `supports_images` and `supports_audio` False, so those branches
-stay unreached and such files fail into the ledger with the reference's
-messages.
+image, audio and MJPEG-video branches import the port's copies of
+`models.image`, `models.jpeg` and `models.audio` (and `ingest.flac`):
+with a multimodal `Embedder` (`supports_images`/`supports_audio`), such
+files become chunks embedded by the tower's patch branches; with a text
+tower they fail into the ledger with the reference's messages.
 
 Parity: the v2 IndexerAPI flow (SURVEY §3.3) —
   FileProcessor classifies into unstructured / structured / direct

@@ -11,9 +11,10 @@ cache with ``if self.cache``, and an empty `EmbeddingCache` is falsy
 cache. The port tests ``is not None``, so repeated texts skip the
 device. Vectors are the same either way.
 
-The multimodal branches (`encode_audio`, `encode_image`) need the
-`MultimodalEncoder`, which is not ported yet: they raise, and
-`supports_audio`/`supports_images` are False.
+`encode_audio` and `encode_image` run the `MultimodalEncoder`'s audio
+and image branches on the same device, with the reference's shape checks
+and messages, in batches of ``batch_size`` whose tail is padded and cut;
+with a text tower they raise ValueError, as the reference does.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 from ..config import EncoderConfig
 from ..utils import DeviceLike
 from .cache import EmbeddingCache
-from .encoder import EncoderState, init_encoder
+from .encoder import EncoderState, MultimodalEncoder, init_encoder
 from .tokenizer import HashTokenizer
 
 
@@ -96,22 +97,100 @@ class Embedder:
     def encode_one(self, text: str) -> np.ndarray:
         return self.encode([text])[0]
 
-    # ------------------------------------------------- audio and image
+    # ------------------------------------------------------------- audio
 
     @property
     def supports_audio(self) -> bool:
-        return False  # the MultimodalEncoder is not ported yet
+        return isinstance(self.state.model, MultimodalEncoder)
+
+    def encode_audio(self, features: np.ndarray,
+                     texts: Optional[Sequence[str]] = None) -> np.ndarray:
+        """Log-mel features (N, frames, mels) -> (N, out_dim) unit
+        vectors via the multimodal tower's audio branch (parity:
+        ImageBind ModalityType.AUDIO, imagebind_handler.py:23-32).
+        Optional `texts` interleave caption tokens with the audio
+        patches (single-tower fusion)."""
+        if not self.supports_audio:
+            raise ValueError(
+                "audio embedding needs a MultimodalEncoder "
+                "(init_encoder(multimodal=True))")
+        model = self.state.model
+        feats = np.asarray(features, dtype=np.float32)
+        if feats.ndim == 2:
+            feats = feats[None]
+        if feats.shape[1:] != (model.audio_frames, model.audio_mels):
+            raise ValueError(
+                f"audio features must be (N, {model.audio_frames}, "
+                f"{model.audio_mels}); got {feats.shape}")
+        n = feats.shape[0]
+        batch_texts = list(texts) if texts is not None else [""] * n
+        if len(batch_texts) != n:
+            raise ValueError(
+                f"texts must match the feature batch: got {len(batch_texts)}"
+                f" captions for {n} audio clips")
+        return self._encode_media(batch_texts, texts is not None,
+                                  audio=feats)
+
+    # ------------------------------------------------------------- image
 
     @property
     def supports_images(self) -> bool:
         return self.supports_audio  # same single multimodal tower
 
-    def encode_audio(self, features: np.ndarray,
-                     texts: Optional[Sequence[str]] = None) -> np.ndarray:
-        raise NotImplementedError(
-            "encode_audio needs the MultimodalEncoder, not ported yet")
-
     def encode_image(self, images: np.ndarray,
                      texts: Optional[Sequence[str]] = None) -> np.ndarray:
-        raise NotImplementedError(
-            "encode_image needs the MultimodalEncoder, not ported yet")
+        """Raster images (N, S, S, 3) float in [0, 1] -> (N, out_dim)
+        unit vectors via the multimodal tower's patch branch (parity:
+        ImageBind ModalityType.VISION, imagebind_handler.py:23-32; the
+        v2 interleaved text+image embedding, model_handler.py:131-169).
+        Optional `texts` interleave caption tokens with the patches."""
+        if not self.supports_images:
+            raise ValueError(
+                "image embedding needs a MultimodalEncoder "
+                "(init_encoder(multimodal=True))")
+        model = self.state.model
+        imgs = np.asarray(images, dtype=np.float32)
+        if imgs.ndim == 3:
+            imgs = imgs[None]
+        s = model.image_size
+        if imgs.shape[1:] != (s, s, 3):
+            raise ValueError(
+                f"images must be (N, {s}, {s}, 3); got {imgs.shape}")
+        n = imgs.shape[0]
+        batch_texts = list(texts) if texts is not None else [""] * n
+        if len(batch_texts) != n:
+            raise ValueError(
+                f"texts must match the image batch: got {len(batch_texts)}"
+                f" captions for {n} images")
+        return self._encode_media(batch_texts, texts is not None,
+                                  images=imgs)
+
+    def _encode_media(self, texts: List[str], captioned: bool, *,
+                      images: Optional[np.ndarray] = None,
+                      audio: Optional[np.ndarray] = None) -> np.ndarray:
+        """One modality's (N, ...) inputs with their captions through the
+        tower in batches of ``batch_size``, the tail padded with zero
+        inputs and empty captions and cut."""
+        media = images if images is not None else audio
+        ids, mask = self.tokenizer.encode_batch(texts, self.max_len)
+        if not captioned:
+            mask = np.zeros_like(mask)  # media only: no text tokens attend
+        n = media.shape[0]
+        out = np.zeros((n, self.cfg.out_dim), dtype=np.float32)
+        dev = self.device
+        for start in range(0, n, self.batch_size):
+            sl = slice(start, min(start + self.batch_size, n))
+            k = sl.stop - sl.start
+            pad = self.batch_size - k
+
+            def up(a):
+                a = np.pad(a[sl], ((0, pad),) + ((0, 0),) * (a.ndim - 1))
+                return torch.from_numpy(a).to(dev)
+
+            b_media = up(media)
+            vecs = self.state.model.apply(
+                self.state.params, up(ids), up(mask),
+                b_media if images is not None else None, None,
+                b_media if audio is not None else None)
+            out[sl] = vecs[:k].cpu().numpy()
+        return out

@@ -1,9 +1,11 @@
-"""The text encoder (768-d, v1 parity) as a PyTorch module.
+"""The text encoder (768-d, v1 parity) and the multimodal tower as
+PyTorch modules.
 
 Port of `rag_application_tpu/models/encoder.py` (`TransformerLayer`,
-`TextEncoder`, `EncoderState`, `init_encoder`): a pre-LN transformer
-encoder, mean-pooled over the attention mask and L2-normalized. The flax
-modules' numerics are kept where they differ from PyTorch's habits:
+`TextEncoder`, `MultimodalEncoder`, `EncoderState`, `init_encoder`): a
+pre-LN transformer encoder, mean-pooled over the attention mask and
+L2-normalized. The flax modules' numerics are kept where they differ
+from PyTorch's habits:
 
   * parameters stay float32 and are cast to the compute dtype at use
     (`nn.Embed`/`nn.Dense` with ``dtype=bf16``); a dense layer rounds its
@@ -16,11 +18,17 @@ modules' numerics are kept where they differ from PyTorch's habits:
     -inf) and runs the softmax in the compute dtype. A row with no valid
     token then attends uniformly and stays finite, and pools to the zero
     vector; it is written as explicit products and `masked_fill`, because
-    `scaled_dot_product_attention` gives NaN for such a row.
+    `scaled_dot_product_attention` gives NaN for such a row;
+  * the multimodal tower's patch embeds (flax `nn.Conv`, a 16x16 kernel
+    at stride 16 in bf16) are a reshape into non-overlapping patches and
+    one dense product: the flax kernel (16, 16, C, hidden) HWIO flattens
+    row-major into (16 * 16 * C, hidden), in the order the patches
+    flatten (patch row, patch column, channel); the input and kernel are
+    cast to the compute dtype first and the product rounded before the
+    bias, as flax promotes and rounds the conv.
 
 The reference computes all of this outside any Pallas kernel (XLA ops),
-so plain torch ops are its port. `MultimodalEncoder` (image and audio
-patch branches) is not ported yet and raises.
+so plain torch ops are its port.
 """
 
 from __future__ import annotations
@@ -122,10 +130,20 @@ class TextEncoder(nn.Module):
         """ids (B, L) int, mask (B, L) bool -> pooled (B, out_dim) f32 unit
         vectors (zero for a row with no valid token), and with
         ``return_tokens`` also the (B, L, out_dim) f32 token outputs."""
-        dt = self.dtype
         ids, mask = ids.long(), mask.bool()
-        x = self.token_embed[ids].to(dt) + \
+        return self._tower(self._embed_text(ids), mask, return_tokens)
+
+    def _embed_text(self, ids: torch.Tensor) -> torch.Tensor:
+        """Token plus position embeddings, (B, L, hidden) in the compute
+        dtype."""
+        dt = self.dtype
+        return self.token_embed[ids].to(dt) + \
             self.pos_embed[:ids.shape[1]].to(dt)[None]
+
+    def _tower(self, x: torch.Tensor, mask: torch.Tensor,
+               return_tokens: bool):
+        """The layer stack, final norm, projection and masked mean pool
+        over ``mask`` (B, L) of the sequence ``x`` (B, L, hidden)."""
         for layer in self.layers:
             x = layer(x, mask)
         x = _layer_norm(x, self.final_ln_scale, self.final_ln_bias)
@@ -148,29 +166,100 @@ class TextEncoder(nn.Module):
             params.get(n) is t for n, t in self.named_parameters())
 
     def apply(self, params: Optional[Mapping[str, torch.Tensor]],
-              ids: torch.Tensor, mask: torch.Tensor, *,
-              return_tokens: bool = False):
-        """The reference's ``model.apply(params, ids, mask)`` call shape,
-        without autograd. The module owns its weights, so ``params`` is
-        not read here; `FusedSearcher.bind_encoder` checks it once with
-        `owns`."""
+              *inputs: Optional[torch.Tensor], return_tokens: bool = False):
+        """The reference's ``model.apply(params, ids, mask, ...)`` call
+        shape (the multimodal tower's also takes images, image_mask,
+        audio, audio_mask), without autograd. The module owns its
+        weights, so ``params`` is not read here;
+        `FusedSearcher.bind_encoder` checks it once with `owns`."""
         del params
         with torch.no_grad():
-            return self(ids, mask, return_tokens=return_tokens)
+            return self(*inputs, return_tokens=return_tokens)
 
 
-class MultimodalEncoder(nn.Module):
-    """Single-tower multimodal encoder (image and audio patch branches).
-    Not ported yet: it needs `models/{image,audio,jpeg}.py`."""
+def _patches(x: torch.Tensor, p: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/p * W/p, p * p * C): non-overlapping p x p
+    patches in row-major patch order, each flattened (row, column,
+    channel) like a flax HWIO conv kernel."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, (h // p) * (w // p), p * p * c)
 
-    def __init__(self, cfg: EncoderConfig, *args, **kwargs):
-        raise NotImplementedError(
-            "MultimodalEncoder is not ported yet (image/audio branches)")
+
+class MultimodalEncoder(TextEncoder):
+    """Single-tower multimodal encoder: image and audio patches as
+    prefix tokens (ImageBind-style), the counterpart of the reference's
+    flax `MultimodalEncoder`.
+
+    An image (B, 224, 224, 3) becomes 14 x 14 = 196 patch tokens, a
+    log-mel clip (B, 256, 128) 16 x 8 = 128, each plus its own learned
+    position table. The sequence is audio, then image, then text tokens,
+    and so is the mask; a missing ``image_mask``/``audio_mask`` is all
+    true. Without images and audio it is the `TextEncoder`."""
+
+    patch_size = 16
+    image_size = 224
+    audio_frames = 256
+    audio_mels = 128
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__(cfg)
+        h, p = cfg.hidden_dim, self.patch_size
+
+        def param(*shape):
+            return nn.Parameter(torch.zeros(shape), requires_grad=False)
+
+        self.patch_w, self.patch_b = param(p * p * 3, h), param(h)
+        self.patch_pos = param((self.image_size // p) ** 2, h)
+        self.audio_patch_w, self.audio_patch_b = param(p * p, h), param(h)
+        self.audio_patch_pos = param(
+            (self.audio_frames // p) * (self.audio_mels // p), h)
+
+    def _embed_patches(self, x: torch.Tensor, w: torch.Tensor,
+                       b: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """flax nn.Conv(hidden, (p, p), strides=(p, p), dtype) on
+        (B, H, W, C) plus the position table, (B, P, hidden)."""
+        patches = _dense(_patches(x.to(self.dtype), self.patch_size), w, b)
+        if patches.shape[1] != pos.shape[0]:
+            raise ValueError(f"{patches.shape[1]} patches, but the position "
+                             f"table holds {pos.shape[0]}")
+        return patches + pos.to(self.dtype)[None]
+
+    def forward(self, ids: torch.Tensor, mask: torch.Tensor,
+                images: Optional[torch.Tensor] = None,
+                image_mask: Optional[torch.Tensor] = None,
+                audio: Optional[torch.Tensor] = None,
+                audio_mask: Optional[torch.Tensor] = None, *,
+                return_tokens: bool = False):
+        """ids, mask (B, L); images (B, 224, 224, 3) float; audio
+        (B, 256, 128) log-mel; image_mask, audio_mask (B,) bool -> pooled
+        (B, out_dim) f32 unit vectors, and with ``return_tokens`` the
+        (B, L_audio + L_image + L, out_dim) f32 token outputs."""
+        ids, mask = ids.long(), mask.bool()
+        x = self._embed_text(ids)
+        if images is not None:
+            x, mask = self._prepend(x, mask, image_mask, self._embed_patches(
+                images, self.patch_w, self.patch_b, self.patch_pos))
+        if audio is not None:
+            x, mask = self._prepend(x, mask, audio_mask, self._embed_patches(
+                audio[..., None], self.audio_patch_w, self.audio_patch_b,
+                self.audio_patch_pos))
+        return self._tower(x, mask, return_tokens)
+
+    @staticmethod
+    def _prepend(x, mask, media_mask, patches):
+        """``patches`` (B, P, hidden) before the sequence ``x``, and their
+        rows of ``media_mask`` (B,) (all true when None) before ``mask``."""
+        b, n = patches.shape[:2]
+        if media_mask is None:
+            media_mask = torch.ones(b, dtype=torch.bool, device=mask.device)
+        pmask = media_mask.bool()[:, None].expand(b, n)
+        return torch.cat([patches, x], dim=1), torch.cat([pmask, mask], dim=1)
 
 
 @dataclass
 class EncoderState:
-    model: TextEncoder
+    model: TextEncoder  # or its subclass MultimodalEncoder
     params: Any   # name -> tensor: the module's own parameters
     cfg: EncoderConfig
 
@@ -178,24 +267,26 @@ class EncoderState:
 def init_encoder(cfg: Optional[EncoderConfig] = None, *, seed: int = 0,
                  multimodal: bool = False, max_len: int = 128,
                  device: DeviceLike = None) -> EncoderState:
-    """A TextEncoder with random weights from ``seed``, drawn from an
-    explicit CPU `torch.Generator` (so every device gets the same
-    weights) with flax's default scales: embeddings and kernels
-    N(0, 1/fan_in), biases 0, norm scales 1. ``max_len`` is the
-    reference's dummy sequence length at init; the weights do not depend
-    on it (pos_embed spans ``cfg.max_len``)."""
+    """A TextEncoder (a MultimodalEncoder with ``multimodal``) with random
+    weights from ``seed``, drawn from an explicit CPU `torch.Generator`
+    (so every device gets the same weights) with flax's default scales:
+    embeddings and kernels (the patch embeds' too) N(0, 1/fan_in), the
+    two patch position tables N(0, 0.02^2), biases 0, norm scales 1.
+    ``max_len`` is the reference's dummy sequence length at init; the
+    weights do not depend on it (pos_embed spans ``cfg.max_len``)."""
     del max_len
     cfg = cfg or EncoderConfig()
-    if multimodal:
-        raise NotImplementedError(
-            "init_encoder(multimodal=True): MultimodalEncoder is not ported "
-            "yet")
     dev = resolve_device(device)
-    model = TextEncoder(cfg)
+    model = MultimodalEncoder(cfg) if multimodal else TextEncoder(cfg)
     gen = torch.Generator().manual_seed(seed)
-    for name, t in model.named_parameters():
+    # the patch branches draw last: the text weights are the text tower's
+    for name, t in sorted(model.named_parameters(),
+                          key=lambda nt: "patch" in nt[0]):
         if t.dim() == 1:
             continue  # biases 0, norm scales 1 (as constructed)
+        if name.endswith("patch_pos"):
+            t.copy_(torch.randn(t.shape, generator=gen) * 0.02)
+            continue
         # kernels (in, out): fan_in = in; embeddings (rows, hidden): hidden
         fan_in = t.shape[0] if name.endswith("_w") else t.shape[1]
         t.copy_(torch.randn(t.shape, generator=gen) / math.sqrt(fan_in))

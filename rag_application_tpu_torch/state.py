@@ -137,12 +137,14 @@ def decoder_params_from_jax(params: Mapping[str, Any], cfg: DecoderConfig,
 def encoder_params_from_jax(params: Mapping[str, Any], cfg: EncoderConfig,
                             device: DeviceLike = None
                             ) -> Dict[str, torch.Tensor]:
-    """The port's `TextEncoder` state (name -> f32 tensor, for
-    `load_state_dict`) from a flax `TextEncoder` param tree given as
-    numpy (every leaf f32, with or without the top-level ``"params"``).
-    The q/k/v kernels (hidden, heads, head_dim) and biases (heads,
-    head_dim) become one (hidden, 3*hidden) product and its bias; the
-    output kernel (heads, head_dim, hidden) a (hidden, hidden) one."""
+    """The port's `TextEncoder` or `MultimodalEncoder` state (name -> f32
+    tensor, for `load_state_dict`) from a flax param tree of either tower
+    given as numpy (every leaf f32, with or without the top-level
+    ``"params"``). The q/k/v kernels (hidden, heads, head_dim) and biases
+    (heads, head_dim) become one (hidden, 3*hidden) product and its bias;
+    the output kernel (heads, head_dim, hidden) a (hidden, hidden) one.
+    A multimodal tree's patch-embed conv kernels (p, p, C, hidden) become
+    (p * p * C, hidden) products; the position tables pass as they are."""
     p = params.get("params", params)
     h = cfg.hidden_dim
     dev = resolve_device(device)
@@ -165,6 +167,12 @@ def encoder_params_from_jax(params: Mapping[str, Any], cfg: EncoderConfig,
         "proj_w": leaf("proj", "kernel"),
         "proj_b": leaf("proj", "bias"),
     }
+    if "patch_embed" in p:
+        for src, dst in (("patch_embed", "patch"),
+                         ("audio_patch_embed", "audio_patch")):
+            out[dst + "_w"] = leaf(src, "kernel").reshape(-1, h)
+            out[dst + "_b"] = leaf(src, "bias")
+            out[dst + "_pos"] = leaf(dst + "_pos")
     for i in range(cfg.num_layers):
         lp = f"layer_{i}"
         att = (lp, "MultiHeadDotProductAttention_0")

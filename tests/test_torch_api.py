@@ -106,9 +106,10 @@ def embedders():
     return _EMB["pair"]
 
 
-def apps(**kw):
-    """(JAX router, state), (port router, state) on the same weights."""
-    jemb, temb = embedders()
+def apps(pair=None, **kw):
+    """(JAX router, state), (port router, state) on the same weights: the
+    text tower's, or ``pair``'s (JAX Embedder, port Embedder)."""
+    jemb, temb = pair or embedders()
     j = j_build_app(j_config(), llm=JRouter(JProvider.STUB), embedder=jemb,
                     **kw)
     t = build_app(t_config(), llm=LLMRouter(Provider.STUB), embedder=temb,
@@ -218,10 +219,10 @@ class Dual:
         return got
 
 
-def with_servers(fn, **kw):
+def with_servers(fn, pair=None, **kw):
     """Run ``fn(dual)`` against a JAX and a port server."""
     async def main():
-        (jr, js), (tr, ts) = apps(**kw)
+        (jr, js), (tr, ts) = apps(pair, **kw)
         jsrv, tsrv = JHTTPServer(jr, port=0), HTTPServer(tr, port=0)
         jport, tport = await jsrv.start(), await tsrv.start()
         try:
@@ -745,6 +746,76 @@ def test_filtered_search_and_collection_counts():
         await c.post("/v1/embeddings", json={
             "input": ["pets", [{"type": "text", "text": "dogs"}], 3]})
     with_servers(fn)
+
+
+_MM = {}
+
+
+def mm_embedders():
+    """(JAX Embedder, port Embedder) on the multimodal tower, built once."""
+    if not _MM:
+        _MM["pair"] = embedder_pair(ECFG, seed=3, multimodal=True)
+    return _MM["pair"]
+
+
+def data_url(mime, data):
+    return f"data:{mime};base64," + base64.b64encode(data).decode()
+
+
+@pytest.mark.parametrize("tower", ["multimodal", "text"])
+def test_embeddings_image_blocks(tower):
+    """tests/test_image.py's and tests/test_jpeg.py's /v1/embeddings image
+    blocks (PNG and JPEG data URLs fused with their captions, an image
+    alone, a GIF and a broken data URL falling back to text-only, the
+    ``input_image`` type), in lockstep; a text tower drops the images in
+    both. The port's vectors equal its own `encode_image` calls."""
+    from rag_application_tpu_torch.ingest.pdf import _make_png
+    from rag_application_tpu_torch.models.image import image_to_input
+    from rag_application_tpu_torch.models.jpeg import encode_jpeg
+
+    rng = np.random.default_rng(0)
+    png = _make_png(rng.integers(0, 256, (32, 32, 3), dtype=np.uint8
+                                 ).tobytes(), 32, 32, 8, "rgb")
+    yy, xx = np.mgrid[0:40, 0:40]
+    jpeg = encode_jpeg(np.stack([np.sin(xx / 7.0) * 0.5 + 0.5,
+                                 np.cos(yy / 5.0) * 0.5 + 0.5,
+                                 (xx + yy) / 80.0], -1), quality=92)
+    pair = mm_embedders() if tower == "multimodal" else embedders()
+
+    async def fn(c):
+        r = await c.post("/v1/embeddings", json={"input": [
+            "plain text row",
+            [{"type": "text", "text": "a photo"},
+             {"type": "image_url",
+              "image_url": {"url": data_url("image/png", png)}}],
+            [{"type": "text", "text": "a photo"},
+             {"type": "image_url", "image_url": data_url("image/jpeg", jpeg)}],
+            [{"type": "input_image", "image_url": data_url("image/png", png)}],
+            [{"type": "text", "text": "a gif"},
+             {"type": "image_url", "image_url": data_url(
+                 "image/gif", b"GIF89a" + bytes(32))}],
+            [{"type": "text", "text": "broken"},
+             {"type": "image_url", "image_url": "data:image/png;base64"}],
+            [{"type": "text", "text": "a photo"}],
+        ]})
+        data = [np.asarray(d["embedding"], np.float32)
+                for d in r.json()["data"]]
+        temb = pair[1]
+        if tower == "multimodal":
+            size = temb.state.model.image_size
+            want = temb.encode_image(
+                np.stack([image_to_input(png, size),
+                          image_to_input(jpeg, size),
+                          image_to_input(png, size)]),
+                texts=["a photo", "a photo", ""])
+            np.testing.assert_allclose(np.stack(data[1:4]), want, atol=1e-6)
+            assert float(data[1] @ data[6]) < 0.999  # pixels fused in
+        else:
+            np.testing.assert_allclose(data[1], data[6], atol=1e-6)
+        texts = temb.encode(["plain text row", "a gif", "broken", "a photo"])
+        np.testing.assert_allclose(np.stack([data[0], data[4], data[5],
+                                             data[6]]), texts, atol=1e-6)
+    with_servers(fn, pair)
 
 
 # ------------------------------------------------ tests/test_admin_api.py

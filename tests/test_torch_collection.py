@@ -153,9 +153,9 @@ def test_embedder_matches_reference_and_caches():
     np.testing.assert_allclose(nocache.encode_one("gamma"), out[3],
                                atol=1e-6)
     assert te.dim == 32 and not te.supports_audio and not te.supports_images
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="MultimodalEncoder"):
         te.encode_image(np.zeros((1, 224, 224, 3), dtype=np.float32))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="MultimodalEncoder"):
         te.encode_audio(np.zeros((1, 256, 128), dtype=np.float32))
 
 

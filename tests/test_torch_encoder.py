@@ -134,11 +134,14 @@ def test_apply_takes_own_params_only_and_multimodal_raises():
     searcher.bind_encoder(ts.model, ts.params)
     with pytest.raises(ValueError, match="load_state_dict"):
         searcher.bind_encoder(ts.model, other.params)
-    with pytest.raises(NotImplementedError):
-        tenc.init_encoder(EncoderConfig(**SMALL), multimodal=True,
-                          device="cpu")
-    with pytest.raises(NotImplementedError):
-        tenc.MultimodalEncoder(EncoderConfig(**SMALL))
+    # the multimodal tower is built (tests/test_torch_multimodal.py holds
+    # it to flax); an image whose patches its position table does not
+    # hold raises
+    mm = tenc.init_encoder(EncoderConfig(**SMALL), multimodal=True,
+                           device="cpu")
+    assert isinstance(mm.model, tenc.MultimodalEncoder)
+    with pytest.raises(ValueError, match="patches"):
+        mm.model.apply(None, ids, mask, torch.zeros(len(TEXTS), 32, 32, 3))
 
 
 def test_init_encoder_seeded_and_defaults():

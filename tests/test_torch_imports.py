@@ -39,8 +39,9 @@ def test_port_imports_without_jax():
     # knowledge, browser, mcp_client), agents, index.ivf, api (http,
     # users, chat_ui, app), mcp (server, file_server, search_server),
     # serve, models.constrain, llm.scheduler, models.speculative,
-    # models.bert, utils, config, state, ...
-    assert len(mods) >= 92
+    # models.bert, the media front ends (models.image, models.jpeg,
+    # models.audio, ingest.flac), utils, config, state, ...
+    assert len(mods) >= 96
     assert {f"rag_application_tpu_torch.{m}" for m in (
         "index.checkpoint", "search.batcher", "search.hybrid",
         "search.orchestration", "ops.graph_hop", "kg.store",
@@ -53,4 +54,5 @@ def test_port_imports_without_jax():
         "api.chat_ui", "api.app", "mcp", "mcp.server", "mcp.file_server",
         "mcp.search_server", "serve", "models.constrain",
         "tools.mcp_client", "llm.scheduler", "models.speculative",
-        "models.bert")} <= mods
+        "models.bert", "models.image", "models.jpeg", "models.audio",
+        "ingest.flac")} <= mods

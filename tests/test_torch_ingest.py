@@ -88,11 +88,14 @@ def small_config(cls, index, sparse, funnel):
 
 
 @functools.lru_cache(maxsize=None)
-def embedders():
-    """(JAX Embedder, port Embedder) on the same encoder weights."""
-    js = j_init(JEncoderConfig(**ECFG), max_len=32, seed=11)
+def embedders(multimodal=False):
+    """(JAX Embedder, port Embedder) on the same encoder weights: the text
+    tower, or with ``multimodal`` the multimodal one (tests/test_audio.py's
+    TINY_MM widths)."""
+    js = j_init(JEncoderConfig(**ECFG), max_len=32, seed=11,
+                multimodal=multimodal)
     cfg = EncoderConfig(**ECFG)
-    ts = init_encoder(cfg, device="cpu")
+    ts = init_encoder(cfg, device="cpu", multimodal=multimodal)
     ts.model.load_state_dict(state.encoder_params_from_jax(
         jax.tree.map(np.asarray, js.params), cfg, "cpu"))
     return (JEmbedder(js, batch_size=4, max_len=32),
@@ -227,8 +230,8 @@ class Pair:
     side's writes."""
 
     def __init__(self, root=None, *, concurrency=1, kg=True,
-                 kg_extractor=extractor, **hooks):
-        je, te = embedders()
+                 kg_extractor=extractor, multimodal=False, **hooks):
+        je, te = self.embedders = embedders(multimodal)
         self.concurrency = concurrency
         self.jcol = JCollection("t", small_config(
             JConfig, JIndexConfig, JSparseConfig, JFunnelConfig))
@@ -344,9 +347,16 @@ class Pair:
                     map(repr, jt.by_key))
 
     def _check_search(self, query):
-        """Carry the reference's dense tables over, then search both."""
-        je, _ = embedders()
-        q = je.encode([query])[0]
+        """Carry the reference's dense tables over, then search both: a
+        text query, or an (image raster, caption) or (log-mel, caption)
+        query through the multimodal tower."""
+        je, _ = self.embedders
+        if isinstance(query, tuple):
+            media, query = query
+            fn = je.encode_image if media.shape[-1] == 3 else je.encode_audio
+            q = fn(media, texts=[query])[0]
+        else:
+            q = je.encode([query])[0]
         j = self.jcol.dense
         self.tcol.dense = state.dense_from_numpy(
             self.tcol.cfg.index, dense_arrays(j), j.size, j.has_deletes,
@@ -454,14 +464,136 @@ def avi_bytes():
 
 @pytest.mark.parametrize("name", ["clip.wav", "song.mp3", "tour.avi"])
 def test_media_fails_into_ledger(name):
-    """The multimodal tower is not ported, so audio and (without a
-    describer) video fail with the reference's messages."""
+    """With a text tower, audio and (without a describer) video fail with
+    the reference's messages."""
     data = {"clip.wav": wav_bytes, "song.mp3": lambda: b"\xff\xfbbinary",
             "tour.avi": avi_bytes}[name]()
     pair = Pair()
     res = pair.run("ingest_file", name, data, document_id="m")
     assert res.chunks == 0 and res.failed_tasks == 1
     assert "no processor for media file" in pair.t.queue.failed[-1].error
+    pair.check()
+
+
+# ------------------------- tests/test_{image,jpeg,audio,flac,video}.py media
+
+def smooth(h, w, shade=1.0):
+    yy, xx = np.mgrid[0:h, 0:w]
+    return shade * np.stack([0.5 + 0.5 * np.sin(xx / 17.0),
+                             0.5 + 0.5 * np.cos(yy / 13.0),
+                             np.clip((xx + yy) / (h + w), 0, 1)],
+                            axis=-1).astype(np.float32)
+
+
+def png_bytes(seed=0, h=40, w=56):
+    from rag_application_tpu_torch.ingest.pdf import _make_png
+
+    rgb = np.random.default_rng(seed).integers(0, 256, (h, w, 3),
+                                               dtype=np.uint8)
+    return _make_png(rgb.tobytes(), w, h, 8, "rgb")
+
+
+def jpeg_bytes(shade=1.0, h=48, w=64):
+    from rag_application_tpu_torch.models.jpeg import encode_jpeg
+
+    return encode_jpeg(smooth(h, w, shade), quality=90)
+
+
+def tone(freq=440.0, seconds=0.5):
+    from test_audio import make_wav
+
+    return make_wav(freq=freq, seconds=seconds)
+
+
+def flac_bytes(seed=5):
+    from test_flac import _sig
+
+    from rag_application_tpu_torch.ingest.flac import encode_flac
+
+    return encode_flac(_sig(12000, 2, 16, seed=seed), 16000)
+
+
+def mjpeg_avi(n=3):
+    from test_video import build_avi
+
+    return build_avi([jpeg_bytes(0.3 + 0.2 * i, 24, 32) for i in range(n)])
+
+
+def scanned_pdf():
+    """tests/test_pdf.py's scanned page: one DCTDecode image, no text."""
+    from test_pdf import build_image_pdf
+
+    jpeg = jpeg_bytes(h=60, w=80)
+    return build_image_pdf(
+        b"<< /Type /XObject /Subtype /Image /Width 80 /Height 60 "
+        b"/ColorSpace /DeviceRGB /BitsPerComponent 8 /Filter /DCTDecode "
+        b"/Length %d >>" % len(jpeg), jpeg)
+
+
+MEDIA = {
+    "pic.png": (png_bytes, 1),
+    "photo.jpg": (jpeg_bytes, 1),
+    "clip.wav": (tone, 1),
+    "clip.flac": (flac_bytes, 1),
+    "song.mp3": (lambda: b"\xff\xfbbinary", 0),
+    "tour.avi": (mjpeg_avi, 3),
+    "scan.pdf": (scanned_pdf, 0),
+    "broken.png": (lambda: b"\x89PNG...", 0),
+}
+
+
+@pytest.mark.parametrize("name", list(MEDIA))
+def test_media_multimodal(name):
+    """With a multimodal tower and no describer, each file becomes the
+    reference's chunks (an MP3 without a decoder, an undecodable PNG and
+    an image-only PDF, which needs a describer, fail with its messages)."""
+    make, chunks = MEDIA[name]
+    pair = Pair(multimodal=True)
+    res = pair.run("ingest_file", name, make(), document_id="m")
+    assert res.chunks == chunks and res.failed_tasks == (chunks == 0)
+    pair.check()
+
+
+def test_media_multimodal_search():
+    """An image, a photo and two tones, then the reference's search with
+    an image query (a stored raster and its caption) on both sides."""
+    from rag_application_tpu_torch.models.image import image_to_input
+
+    pair = Pair(multimodal=True, kg=False)
+    for name, data in (("a.png", png_bytes(1)), ("b.jpg", jpeg_bytes(0.7)),
+                       ("low.wav", tone(300)), ("high.wav", tone(2500))):
+        pair.run("ingest_file", name, data, document_id=name)
+    pair.check((image_to_input(png_bytes(1), 224)[None], "[image] page 1"))
+
+
+def test_audio_transcriber_and_decoder():
+    """tests/test_audio.py's hooks: a transcript becomes the chunk's text
+    (and its KG page); a decoder hook opens an MP3."""
+    pair = Pair(multimodal=True, audio_transcriber=lambda data: (
+        "Vivek's meeting about quarterly revenue"))
+    res = pair.run("ingest_file", "meeting.wav", tone(), document_id="mt")
+    assert res.failed_tasks == 0 and res.chunks == 1
+    row = pair.tcol.payloads.rows_where(document_id="mt")[0]
+    assert "quarterly revenue" in pair.tcol.payloads.get(row)["text"]
+    assert pair.tkg.stats()["entity"] == 1
+    pair.check()
+    pair = Pair(multimodal=True, audio_decoder=lambda data: (
+        np.sin(np.linspace(0, 600 * np.pi, 24000)).astype(np.float32), 24000))
+    res = pair.run("ingest_file", "clip.mp3", b"\xff\xfbFAKEMP3DATA",
+                   document_id="mp3")
+    assert res.failed_tasks == 0 and res.chunks == 1
+    pair.check()
+
+
+def test_media_concurrent():
+    """Every media kind at the default concurrency: keyed writes, payloads
+    and tables agree, and the queues' counts and the KG's `stats()` too."""
+    pair = Pair(concurrency=IngestConfig().max_concurrency, multimodal=True)
+    for name, (make, _) in MEDIA.items():
+        pair.run("ingest_file", name, make(), document_id=name)
+    pair.run("ingest_text", "Vivek built a retrieval engine. " * 10,
+             document_id="notes")
+    assert pair.t.queue.queue_info() == pair.j.queue.queue_info()
     pair.check()
 
 

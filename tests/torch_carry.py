@@ -17,11 +17,14 @@ from rag_application_tpu_torch.models.embedder import Embedder
 from rag_application_tpu_torch.models.encoder import init_encoder
 
 
-def embedder_pair(ecfg, *, seed, max_len=16, batch_size=4):
-    """(JAX Embedder, port Embedder on the CPU) with the same weights."""
-    js = j_init(JEncoderConfig(**ecfg), max_len=max_len, seed=seed)
+def embedder_pair(ecfg, *, seed, max_len=16, batch_size=4,
+                  multimodal=False):
+    """(JAX Embedder, port Embedder on the CPU) with the same weights, on
+    the text tower or, with ``multimodal``, the multimodal one."""
+    js = j_init(JEncoderConfig(**ecfg), max_len=max_len, seed=seed,
+                multimodal=multimodal)
     cfg = EncoderConfig(**ecfg)
-    ts = init_encoder(cfg, device="cpu")
+    ts = init_encoder(cfg, device="cpu", multimodal=multimodal)
     ts.model.load_state_dict(state.encoder_params_from_jax(
         jax.tree.map(np.asarray, js.params), cfg, "cpu"))
     return (JEmbedder(js, batch_size=batch_size, max_len=max_len),
