@@ -202,6 +202,30 @@
    bank, no solo call); 4 solo `generate_ids` one at a time (serialized
    tokens/s); one `generate_ids(speculative=True)` at B 1, prompt 512 +
    128 new, beside plain `generate_ids` (teacher-forced).
+   Then `[train]`, training and LoRA (models/train.py, models/lora.py):
+   `[train-enc]` `make_train_step` on an `EncoderConfig()` encoder (random
+   weights from seed 0) with matryoshka dims (64, 128, 256) and AdamW,
+   one batch of 64 x 128 tokens from `batches(crop_pairs +
+   keyword_pairs)` over 384 generated texts: the first step's loss and
+   the projection's weight gradient against a CPU copy, then 20 steps on
+   the batch (the loss must fall; step ms, pairs/s, peak memory);
+   `[train-lora]` `make_lora_train_step` (r 8, alpha 16 on wq/wk/wv/wo,
+   remat) over [gen-main]'s int8 base with kv_quant off, B 8 x T 256 of
+   rows that cycle through 16 tokens: the first step's loss at 2 layers
+   of the same widths against a CPU copy, then 20 steps that must bring
+   the loss below half the first (step ms, tokens/s, peak memory,
+   adapter bytes), the base unchanged; then 2 steps of
+   `make_lm_train_step` (a full fine-tune, bf16 weights) whose loss must
+   fall (step ms, peak memory); `[train-serve]` the trained factors
+   through `save_adapters`, `LocalLLM.register_lora` on [gen-main]'s
+   weights and flags and `enable_batching` at [batch]'s setting: 4
+   conversations each asked with and without the adapter, 8 chats at
+   once x 64 new (tokens/s; decode_attn launches 22 x the steps, the
+   first 88 held to plain as they run), adapter rows teacher-forced on
+   the `lora_merge`d bf16 weights and base rows on the base (each within
+   0.25 of its step's top logit), every adapter row's tokens other than
+   its base twin's, and the base rows alone on a fresh batcher equal to
+   those beside the adapter rows.
 10. `[serve]`, the port's HTTP service. Before step 8, the [ingest]
    collection and the [kg] graph are saved as one user space (with an
    account) through `serve.checkpoint_spaces` under build/smoke_serve/.
@@ -253,6 +277,11 @@ for kernel work on the decode attention.
 runs steps 1-2, `[gen-check]` and `[gen-time]`, then `[batch]` of step 9
 alone (building the [gen-main] weights), for work on the continuous
 batcher or speculation.
+
+    python3 chip_smoke.py --train
+
+runs steps 1-2 and then `[train]` of step 9 alone (building the
+[gen-main] weights), for work on training, LoRA or multi-LoRA serving.
 
     python3 chip_smoke.py --match-prep
 
@@ -454,6 +483,36 @@ BATCH_SOLO = 4           # solo generate_ids runs, one at a time
 BATCH_SOLO_PROMPT = 512  # solo speculation at B 1
 # [batch]'s decode-step attention: (B, S, KVH, G, hd), S = 256 + 512
 BATCH_ATTN = (BATCH_SLOTS, BATCH_PROMPT + BATCH_HORIZON, 4, 8, 64)
+
+# [train]: training and LoRA (models/train.py, models/lora.py).
+# [train-enc]: contrastive steps on an EncoderConfig() encoder over
+# batches(crop_pairs + keyword_pairs) of generated texts
+TRAIN_TEXTS, TRAIN_WORDS = 384, 48  # texts, and words a text
+TRAIN_BATCH, TRAIN_LEN = 64, 128
+TRAIN_DIMS = (64, 128, 256)         # IndexConfig().matryoshka_dims
+TRAIN_STEPS = 20
+TRAIN_ENC_LR = 1e-4
+# card vs its CPU copy on the first step (bf16 activations, f32 weights):
+# loss relative error, and the relative L2 error of the projection's
+# weight gradient, about 8x and 5x the measured 6.64e-5 and 3.97e-3
+# (H100 80GB HBM3 at 700 W)
+TRAIN_ENC_LOSS_RTOL, TRAIN_ENC_GRAD_RTOL = 5e-4, 2e-2
+# [train-lora]: rank-8 adapters (alpha 16) on wq/wk/wv/wo over [gen-main]'s
+# int8 base with an f32 KV-free training forward, B 8 x T 256, remat
+LORA_R, LORA_ALPHA, LORA_B, LORA_T = 8, 16.0, 8, 256
+LORA_PERIOD = 16        # each row cycles through 16 tokens of its own
+LORA_LR = 1e-3          # at 1e-2 the 22-layer run diverged
+LORA_DROP = 0.5         # the 20th step's loss below half the first's
+LORA_CHECK_LAYERS = 2   # the CPU copy: the same widths at 2 layers
+LORA_CHECK_STEPS = 2    # the card held to the CPU copy on 2 steps
+# card vs CPU copy, each checked step: the loss's relative error and the
+# worst adapter factor's gradient, relative L2, about 10x and 5x the
+# measured 9.30e-6 and 3.98e-3 (H100 80GB HBM3 at 700 W)
+LORA_LOSS_RTOL, LORA_GRAD_RTOL = 1e-4, 2e-2
+FT_STEPS, FT_LR = 2, 1e-4  # full fine-tune, bf16 weights
+# [train-serve]: the trained adapter beside the base in one batch
+TSERVE_CONVS, TSERVE_NEW = 4, 64  # conversations, each asked twice
+TSERVE_DIR = "build/smoke_lora"
 
 
 def log(msg: str) -> None:
@@ -3517,13 +3576,14 @@ def teacher_forced(params, cfg, prompts, outs, dev):
 
 def record_ids(batcher):
     """Wrap `batcher.submit` (which `LocalLLM.chat` awaits) to keep each
-    request's token ids by prompt; returns the dict it fills."""
+    request's token ids by (prompt, adapter id); returns the dict it
+    fills."""
     seen = {}
     real = batcher.submit
 
     async def submit(prompt_ids, **kw):
         out = await real(prompt_ids, **kw)
-        seen[tuple(prompt_ids)] = out
+        seen[(tuple(prompt_ids), kw.get("adapter_id", 0))] = out
         return out
 
     batcher.submit = submit
@@ -3620,7 +3680,7 @@ def run_batch(params, cfg, dev):
     launches = attn_checked.launches
     steps = b.steps - steps0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    plain_ids = [seen[tuple(p)] for p in prompts]
+    plain_ids = [seen[(tuple(p), 0)] for p in prompts]
     n_tok = sum(r.usage["completion_tokens"] for r, _ in res)
     lat = [s for _, s in res]
     log(f"  batched: {BATCH_REQS} chats x {BATCH_NEW} new at once in "
@@ -3687,7 +3747,7 @@ def run_batch(params, cfg, dev):
     asyncio.run(many(main_convs, max_tokens=BATCH_NEW))
     torch.cuda.synchronize()
     spec_wall = time.perf_counter() - t0
-    spec_ids = [seen_s[tuple(p)] for p in prompts]
+    spec_ids = [seen_s[(tuple(p), 0)] for p in prompts]
     gap_s, exact_s = teacher_forced(params, cfg, prompts, spec_ids, dev)
     same_s = sum(a == b_ for a, b_ in zip(spec_ids, plain_ids))
     log(f"  speculative batcher (spec_k {BATCH_SPEC_K}): {BATCH_REQS} x "
@@ -3768,6 +3828,429 @@ def run_batch(params, cfg, dev):
     if not gap1 <= GEN_LOGIT_ATOL or len(spec1) != BATCH_NEW:
         raise AssertionError(f"[batch] solo speculation gap {gap1}")
     return launches, attn_err[0]
+
+
+def train_texts(rng):
+    """[train-enc]'s corpus: TRAIN_TEXTS texts of TRAIN_WORDS words drawn
+    from a zipf vocabulary of 4,096 words, a sentence end every 8-16."""
+    words = [f"w{i}" for i in range(4096)]
+    p = zipf_probs(len(words))
+    out = []
+    for _ in range(TRAIN_TEXTS):
+        ws = [words[i] for i in rng.choice(len(words), TRAIN_WORDS, p=p)]
+        for j in range(8, TRAIN_WORDS, int(rng.integers(8, 17))):
+            ws[j] += "."
+        out.append(" ".join(ws))
+    return out
+
+
+def profile_step(label, fn, reps=2):
+    """Profile ``reps`` calls of a train step ``fn()``: wall ms (CUDA
+    events), device busy ms and idle share, kernel launches and the
+    kernels that take the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ev0.record()
+        for _ in range(reps):
+            fn()
+        ev1.record()
+        torch.cuda.synchronize()
+    wall = ev0.elapsed_time(ev1) / reps
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / reps
+    n = sum(e.count for e in kern) // reps
+    log(f"[profile] {label}, mean of {reps}: {wall:.1f} ms wall (CUDA "
+        f"events); device busy {busy:.1f} ms ({busy / wall:.1%}), idle "
+        f"{1 - busy / wall:.1%}; {n} kernel launches a step")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / reps / 1e3:9.3f} ms/step  "
+            f"x{e.count // reps:<5d} {e.key[:90]}")
+
+
+def timed_steps(step, state, n, *args):
+    """``n`` calls of a train step on a repeated batch; returns (state,
+    losses, host ms a step, each ending in a synchronize)."""
+    import torch
+
+    losses, ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, m = step(state, *args)
+        losses.append(float(m["loss"]))  # reads the loss back: synchronizes
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, losses, ms
+
+
+def run_train_enc(dev, card):
+    """[train-enc]: `make_train_step` on an EncoderConfig() encoder with
+    matryoshka dims and AdamW; the card's first step against a CPU copy,
+    then TRAIN_STEPS steps on one repeated batch."""
+    import torch
+
+    from rag_application_tpu_torch.config import EncoderConfig
+    from rag_application_tpu_torch.models import train as tt
+    from rag_application_tpu_torch.models import train_data as td
+    from rag_application_tpu_torch.models.encoder import init_encoder
+    from rag_application_tpu_torch.models.tokenizer import HashTokenizer
+
+    cfg = EncoderConfig()
+    rng = np.random.default_rng(11)
+    texts = train_texts(rng)
+    pairs = td.crop_pairs(texts, rng) + td.keyword_pairs(texts, rng)
+    batch = next(td.batches(pairs, HashTokenizer(cfg.vocab_size, TRAIN_LEN),
+                            batch_size=TRAIN_BATCH, max_len=TRAIN_LEN))
+    log(f"  {len(texts)} texts -> {len(pairs)} pairs (crop + keyword); "
+        f"batch {TRAIN_BATCH} x {TRAIN_LEN} tokens, matryoshka dims "
+        f"{TRAIN_DIMS}, AdamW lr {TRAIN_ENC_LR}")
+    firsts = {}
+    for where in ("cpu", dev):
+        enc = init_encoder(cfg, device=where)  # seed 0: the same weights
+        opt = tt.make_optimizer(lr=TRAIN_ENC_LR)
+        step = tt.make_train_step(enc.model, opt, matryoshka_dims=TRAIN_DIMS)
+        st = tt.init_train_state(enc.params, opt)
+        t0 = time.perf_counter()
+        st, m = step(st, batch)
+        firsts[str(where)] = (float(m["loss"]),
+                              st.params["proj_w"].grad.float().cpu(),
+                              time.perf_counter() - t0)
+    (lc, gc, tc), (lg, gg, _) = firsts["cpu"], firsts[str(dev)]
+    rel = abs(lg - lc) / abs(lc)
+    grad_rel = float((gg - gc).norm() / gc.norm())
+    log(f"  first step: loss {lg:.6f} on the card, {lc:.6f} on the CPU copy "
+        f"({tc:.1f} s), relative {rel:.2e} (tolerance {TRAIN_ENC_LOSS_RTOL});"
+        f" proj_w gradient relative L2 {grad_rel:.2e} (tolerance "
+        f"{TRAIN_ENC_GRAD_RTOL})")
+    if not (rel <= TRAIN_ENC_LOSS_RTOL and grad_rel <= TRAIN_ENC_GRAD_RTOL):
+        raise AssertionError(f"[train-enc] card != CPU copy: {rel}, "
+                             f"{grad_rel}")
+    torch.cuda.reset_peak_memory_stats()
+    st, losses, ms = timed_steps(step, st, TRAIN_STEPS, batch)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = float(np.median(ms))
+    log(f"  {TRAIN_STEPS} steps on the batch: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; step {med:.1f} ms median (host clock, "
+        f"synchronized; first {ms[0]:.1f}) -> {TRAIN_BATCH / med * 1e3:,.0f}"
+        f" pairs/s; peak device memory {peak:.2f} GiB ({card})")
+    if not losses[-1] < losses[0] or not all(map(np.isfinite, losses)):
+        raise AssertionError(f"[train-enc] loss did not fall: {losses}")
+    profile_step("encoder train step", lambda: step(st, batch))
+    return losses, med, peak
+
+
+def lora_batch(dev, vocab):
+    """LORA_B rows of LORA_T tokens, each row cycling through its own
+    LORA_PERIOD random tokens of ``vocab`` (a seeded generator): after
+    the first period every next token is in the row's context."""
+    import torch
+
+    g = torch.Generator().manual_seed(5)
+    cycle = torch.randint(7, vocab, (LORA_B, LORA_PERIOD), generator=g)
+    ids = cycle[:, torch.arange(LORA_T) % LORA_PERIOD].to(torch.int32)
+    return {"ids": ids.to(dev),
+            "mask": torch.ones((LORA_B, LORA_T), dtype=torch.bool,
+                               device=dev)}
+
+
+def first_layers(tree, n):
+    """A decoder tree (LoRA-wrapped leaves too) cut to its first ``n``
+    layers: every stacked per-layer leaf sliced, the rest kept."""
+    per_layer = ("attn_norm", "ffn_norm", "wq", "wk", "wv", "wo", "w_gate",
+                 "w_up", "w_down", "bq", "bk", "bv")
+
+    def cut(v):
+        return {k: cut(x) for k, x in v.items()} if isinstance(v, dict) \
+            else v[:n]
+    return {k: cut(v) if k in per_layer else v for k, v in tree.items()}
+
+
+def on(tree, dev):
+    if isinstance(tree, dict):
+        return {k: on(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def check_lora_steps(tree, ccfg, batch, dev):
+    """The first LORA_CHECK_STEPS steps of `make_lora_train_step` over the
+    wrapped ``tree`` on ``dev`` against a CPU copy: each step's loss and
+    every adapter factor's gradient. b = 0 at init, so the first step's
+    loss is the base's and a's gradient is exactly 0; later steps go
+    through the trained rank-r delta. The CPU copy starts each step from
+    the card's factors: AdamW's first update is about lr x sign(g), so
+    rounding noise in a near-zero gradient flips the sign of that
+    element of b, and two runs stepped apart differ by far more than
+    their gradients do."""
+    import torch
+
+    from rag_application_tpu_torch.models import lora as tl
+    from rag_application_tpu_torch.models import train as tt
+
+    runs = []
+    for where, t in ((dev, tree), ("cpu", on(tree, "cpu"))):
+        opt = tt.make_optimizer(lr=LORA_LR)
+        runs.append([tt.init_train_state(tl.lora_adapters(t), opt),
+                     tl.make_lora_train_step(ccfg, opt), t,
+                     on(batch, where), []])
+    tc = 0.0
+    for _ in range(LORA_CHECK_STEPS):
+        with torch.no_grad():
+            for n, ab in runs[1][0].params.items():
+                for k, x in ab.items():
+                    x.copy_(runs[0][0].params[n][k].cpu())
+        for j, r in enumerate(runs):
+            t0 = time.perf_counter()
+            r[0], m = r[1](r[0], r[2], r[3])
+            r[4].append((float(m["loss"]),
+                         {f"{n}.{k}": x.grad.float().cpu()
+                          for n, ab in r[0].params.items()
+                          for k, x in ab.items()}))
+            tc += (time.perf_counter() - t0) * j  # the CPU copy's time
+    card_steps, cpu_steps = runs[0][4], runs[1][4]
+
+    def grad_rel(g, gc):
+        d, n = float((g - gc).norm()), float(gc.norm())
+        return d / n if n else (0.0 if d == 0 else float("inf"))
+
+    for i, ((lg, gg), (lc, gc)) in enumerate(zip(card_steps, cpu_steps)):
+        rel = abs(lg - lc) / abs(lc)
+        errs = {k: grad_rel(gg[k], gc[k]) for k in gc}
+        worst = max(errs, key=errs.get)
+        zero = sorted(k for k in gc if not gc[k].any() and not gg[k].any())
+        log(f"  step {i + 1} at {ccfg.num_layers} layers: loss {lg:.6f} "
+            f"on the card, {lc:.6f} on the CPU copy, relative {rel:.2e} "
+            f"(tolerance {LORA_LOSS_RTOL}); adapter gradients' worst "
+            f"relative L2 {errs[worst]:.2e} ({worst}; tolerance "
+            f"{LORA_GRAD_RTOL}); exactly 0 on both: {len(zero)} of "
+            f"{len(gc)} leaves")
+        if not (rel <= LORA_LOSS_RTOL and errs[worst] <= LORA_GRAD_RTOL):
+            raise AssertionError(f"[train-lora] step {i + 1}: card != CPU "
+                                 f"copy: loss {rel}, gradients {errs}")
+        # b = 0 zeroes a's gradient on the first step, and only there
+        want = sorted(k for k in gc if k.endswith(".a")) if i == 0 else []
+        if zero != want:
+            raise AssertionError(f"[train-lora] step {i + 1}: zero "
+                                 f"gradients {zero}, expected {want}")
+    log(f"  the CPU copy's {LORA_CHECK_STEPS} steps took {tc:.1f} s")
+
+
+def run_train_lora(params, cfg, dev, card):
+    """[train-lora]: `make_lora_train_step` over [gen-main]'s int8 base
+    (kv_quant off for training), then `make_lm_train_step` (bf16 weights,
+    a full fine-tune) for FT_STEPS steps. Returns (the trained adapter
+    tree, the wrapped tree)."""
+    import torch
+
+    from rag_application_tpu_torch.models import decoder as dec
+    from rag_application_tpu_torch.models import lora as tl
+    from rag_application_tpu_torch.models import train as tt
+
+    tcfg = dataclasses.replace(cfg, kv_quant=False, attn_kernel=False)
+    wrapped = tl.lora_init(torch.Generator(device=dev).manual_seed(1),
+                           params, r=LORA_R, alpha=LORA_ALPHA)
+    batch = lora_batch(dev, cfg.vocab_size)
+    ad_bytes = sum(t.numel() * t.element_size()
+                   for ab in tl.lora_adapters(wrapped).values()
+                   for t in ab.values())
+    log(f"  LoRA r {LORA_R}, alpha {LORA_ALPHA} on {tl.DEFAULT_TARGETS}: "
+        f"{ad_bytes / 2 ** 20:.2f} MiB of bf16 factors over "
+        f"{cfg.num_layers} layers; batch {LORA_B} x {LORA_T} (rows cycling "
+        f"through {LORA_PERIOD} tokens), remat, AdamW lr {LORA_LR}")
+
+    check_lora_steps(first_layers(wrapped, LORA_CHECK_LAYERS),
+                     dataclasses.replace(tcfg, num_layers=LORA_CHECK_LAYERS),
+                     batch, dev)
+
+    opt = tt.make_optimizer(lr=LORA_LR)
+    st = tt.init_train_state(tl.lora_adapters(wrapped), opt)
+    step = tl.make_lora_train_step(tcfg, opt, remat=True)
+    snap = params["wq"]["q"][0, :4, :4].clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st, losses, ms = timed_steps(step, st, TRAIN_STEPS, wrapped, batch)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = float(np.median(ms))
+    log(f"  {TRAIN_STEPS} LoRA steps: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (must fall below {LORA_DROP} x the first); step "
+        f"{med:.1f} ms median (first {ms[0]:.1f}) -> "
+        f"{LORA_B * LORA_T / med * 1e3:,.0f} tokens/s; peak device memory "
+        f"{peak:.2f} GiB; adapter {ad_bytes / 2 ** 20:.2f} MiB ({card})")
+    if not (losses[-1] < LORA_DROP * losses[0]
+            and all(map(np.isfinite, losses))):
+        raise AssertionError(f"[train-lora] did not overfit: {losses}")
+    if not torch.equal(params["wq"]["q"][0, :4, :4], snap):
+        raise AssertionError("[train-lora] the frozen base moved")
+    profile_step("LoRA train step", lambda: step(st, wrapped, batch))
+
+    # a full fine-tune at the same widths, bf16 weights
+    g = torch.Generator(device=dev).manual_seed(0)
+    opt = tt.make_optimizer(lr=FT_LR)
+    ft = tt.init_train_state(dec.init_decoder_params(g, tcfg, dev), opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ft, ft_losses, ft_ms = timed_steps(tt.make_lm_train_step(tcfg, opt), ft,
+                                       FT_STEPS, batch)
+    ft_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  full fine-tune (make_lm_train_step, bf16 weights, remat): loss "
+        f"{ft_losses}; step {ft_ms} ms (host clock, synchronized); peak "
+        f"device memory {ft_peak:.2f} GiB ({card})")
+    if not (all(map(np.isfinite, ft_losses))
+            and ft_losses[-1] < ft_losses[0]):
+        raise AssertionError(f"[train-lora] full fine-tune: {ft_losses}")
+    del ft
+    torch.cuda.empty_cache()
+    return st.params, wrapped, (losses, med, peak, ad_bytes,
+                                ft_losses, ft_ms, ft_peak)
+
+
+def run_train_serve(params, cfg, adapters, wrapped, dev, card):
+    """[train-serve]: the trained adapter saved, registered on a LocalLLM
+    over [gen-main]'s weights and flags, and served beside the base in
+    one continuous batch at [batch]'s setting. Returns (decode_attn
+    launches of the mixed run, max abs err of its checked launches)."""
+    import asyncio
+    import os
+    import shutil
+
+    import torch
+
+    from rag_application_tpu_torch.llm.local import LocalLLM
+    from rag_application_tpu_torch.llm.router import ChatMessage
+    from rag_application_tpu_torch.models import lora as tl
+    from rag_application_tpu_torch.models.wordpiece import WordPieceTokenizer
+    from rag_application_tpu_torch.ops import decode_attn as da
+
+    os.makedirs(TSERVE_DIR, exist_ok=True)
+    path = f"{TSERVE_DIR}/adapter.npz"
+    try:
+        tl.save_adapters(adapters, path, wrapped=wrapped)
+        words = serve_vocab(cfg.vocab_size)
+        tok = WordPieceTokenizer.from_vocab_list(words, max_len=cfg.max_len)
+        # eos unreachable, as in [batch]: [SEP]'s LM-head column scaled to 0
+        sep = words.index("[SEP]")
+        head = {"q": params["lm_head"]["q"],
+                "s": params["lm_head"]["s"].clone()}
+        head["s"][sep] = 0.0
+        base = {**params, "lm_head": head}
+        llm = LocalLLM(base, cfg, tok, model_name="tinyllama-1.1b-random",
+                       device=dev)
+        if llm.register_lora("smoke", path) != 1:
+            raise AssertionError("[train-serve] bank index")
+        merged = tl.lora_merge(tl.lora_wrap_with(
+            base, tl.load_adapters(path, device=dev)))
+    finally:
+        shutil.rmtree(TSERVE_DIR, ignore_errors=True)
+    rng = np.random.default_rng(17)
+    header, questions = batch_header_and_questions(rng, TSERVE_CONVS, words)
+    convs = [[ChatMessage("system", header), ChatMessage("user", q)]
+             for q in questions]
+    prompts = [llm.render(c) for c in convs]
+
+    def batcher():
+        b = llm.enable_batching(slots=BATCH_SLOTS, prompt_pad=BATCH_PROMPT,
+                                horizon=BATCH_HORIZON, chunk=BATCH_CHUNK,
+                                lookahead=BATCH_LOOKAHEAD)
+        return b, record_ids(b)
+
+    async def chats(adapters_):
+        return await asyncio.gather(*[
+            llm.chat(c, max_tokens=TSERVE_NEW, **({"adapter": a} if a else {}))
+            for a in adapters_ for c in convs])
+
+    real_attn = da.decode_attend_int8
+    attn_err = [0.0]
+
+    def attn_checked(*args):
+        out = real_attn(*args)
+        if attn_checked.launches <= BATCH_ATTN_CHECKS:
+            plain = da.decode_attend_int8_plain(*args)
+            err = (out.float() - plain.float()).abs().max().item()
+            if err > 2 * bf16_ulp(plain.float().abs().max().item()):
+                raise AssertionError(f"[train-serve] decode_attn != plain: "
+                                     f"{err}")
+            attn_err[0] = max(attn_err[0], err)
+        return out
+
+    attn_checked.launches = 0
+    b, seen = batcher()
+    da.decode_attend_int8 = attn_checked
+    try:
+        t0 = time.perf_counter()
+        res = asyncio.run(chats([None, "smoke"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        da.decode_attend_int8 = real_attn
+    launches, steps = attn_checked.launches, b.steps
+    n_tok = sum(r.usage["completion_tokens"] for r in res)
+    base_ids = [seen[(tuple(p), 0)] for p in prompts]
+    lora_ids = [seen[(tuple(p), 1)] for p in prompts]
+    log(f"  {2 * TSERVE_CONVS} chats at once ({TSERVE_CONVS} with the "
+        f"adapter, {TSERVE_CONVS} without), {TSERVE_NEW} new each: "
+        f"{wall:.2f} s -> {n_tok / wall:.1f} tokens/s; steps {steps}; "
+        f"decode_attn launches {launches} ({cfg.num_layers} layers x "
+        f"{steps} steps), the first {BATCH_ATTN_CHECKS} held to plain, max "
+        f"abs err {attn_err[0]:.3g} ({card})")
+    if n_tok != 2 * TSERVE_CONVS * TSERVE_NEW:
+        raise AssertionError(f"[train-serve] {n_tok} tokens")
+    if launches != cfg.num_layers * steps:
+        raise AssertionError(f"[train-serve] decode_attn launched "
+                             f"{launches} times in {steps} steps")
+    gap_l, exact_l = teacher_forced(merged, cfg, prompts, lora_ids, dev)
+    gap_b, exact_b = teacher_forced(base, cfg, prompts, base_ids, dev)
+    differ = sum(a != b_ for a, b_ in zip(lora_ids, base_ids))
+    log(f"  teacher-forced: adapter rows on the lora_merge'd bf16 weights "
+        f"gap {gap_l:.4f}, argmax at {exact_l:.1%}; base rows on the base "
+        f"gap {gap_b:.4f}, argmax at {exact_b:.1%} (tolerance "
+        f"{GEN_LOGIT_ATOL}); the adapter changed {differ} of "
+        f"{TSERVE_CONVS} outputs")
+    if not (gap_l <= GEN_LOGIT_ATOL and gap_b <= GEN_LOGIT_ATOL):
+        raise AssertionError(f"[train-serve] teacher-forced gaps {gap_l}, "
+                             f"{gap_b}")
+    if differ != TSERVE_CONVS:
+        raise AssertionError("[train-serve] the adapter left an output as "
+                             "the base's")
+    del merged
+    # the base rows alone, on a fresh batcher: the same tokens
+    b, seen_alone = batcher()
+    asyncio.run(chats([None]))
+    alone = [seen_alone[(tuple(p), 0)] for p in prompts]
+    log(f"  base rows without the adapter rows beside them: equal tokens "
+        f"{alone == base_ids}")
+    if alone != base_ids:
+        raise AssertionError("[train-serve] base rows depend on the "
+                             "adapter rows")
+    return launches, attn_err[0]
+
+
+def train_phase(params, cfg, dev, card):
+    """[train-enc], [train-lora], [train-serve], each logged with its
+    time; returns `run_train_serve`'s."""
+    import torch
+
+    t0 = time.perf_counter()
+    log(f"[train-enc] make_train_step, EncoderConfig() ({card})")
+    run_train_enc(dev, card)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    log(f"[train-lora] make_lora_train_step over [gen-main]'s int8 base, "
+        f"TinyLlama-1.1B widths ({card})")
+    adapters, wrapped, _ = run_train_lora(params, cfg, dev, card)
+    t2 = time.perf_counter()
+    log(f"[train-serve] the trained adapter through LocalLLM.register_lora "
+        f"and the continuous batcher ({card})")
+    out = run_train_serve(params, cfg, adapters, wrapped, dev, card)
+    del adapters, wrapped
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    log(f"[train] {t3 - t0:.1f} s: enc {t1 - t0:.1f}, lora {t2 - t1:.1f}, "
+        f"serve {t3 - t2:.1f}")
+    return out
 
 
 def ann_corpus(dev):
@@ -5718,6 +6201,21 @@ def batch_only(dev, card) -> int:
     return 0
 
 
+def train_only(dev, card) -> int:
+    """`--train`: [train] alone (with the [gen-main] weights built
+    here)."""
+    import torch
+
+    from rag_application_tpu_torch.models import decoder as dec
+
+    cfg = dec.DecoderConfig(**GEN_CFG)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = dec.quantize_decoder_params(dec.init_decoder_params(g, cfg, dev))
+    train_phase(params, cfg, dev, card)
+    log(card)
+    return 0
+
+
 def scan_only(dev, card) -> int:
     """`--scan`: the scan kernel's checks and times alone, for kernel work
     on the scan (dense tables only; no search, write path or generation)."""
@@ -5804,6 +6302,8 @@ def main() -> int:
         return batch_only(dev, card)
     if sys.argv[1:] == ["--media"]:
         return media_only(dev, card)
+    if sys.argv[1:] == ["--train"]:
+        return train_only(dev, card)
 
     from rag_application_tpu_torch.ops import quant as oq
 
@@ -5912,6 +6412,8 @@ def main() -> int:
     batch_launches, batch_attn_err = batch_phase(params, gcfg, dev, card)
     attn_err = max(attn_err, batch_attn_err)
     torch.cuda.empty_cache()
+    train_launches, train_attn_err = train_phase(params, gcfg, dev, card)
+    attn_err = max(attn_err, train_attn_err)
     serve_errs, serve_launches, serve_attn_err = serve_phase(
         emb, dev, (params, gcfg), serve_ckpt, card)
     scan_err = max(scan_err, serve_errs[0])
@@ -5946,7 +6448,8 @@ def main() -> int:
               bm25_err, bm25_t),
         entry("decode_attn", "rag_application_tpu_torch/csrc/decode_attn.cu",
               "rag_application_tpu/ops/decode_attn.py:86",
-              attn_launches + batch_launches + serve_launches["decode_attn"],
+              attn_launches + batch_launches + train_launches
+              + serve_launches["decode_attn"],
               attn_err,
               attn_t),
         entry("prep_vectors", "rag_application_tpu_torch/csrc/prep_vectors.cu",

@@ -24,11 +24,15 @@ grammar-constrains the decode; a schema `compile_schema` refuses stays
 prompt-only, as in the reference.
 
 `from_hf_dir` loads a local LLaMA-family checkpoint directory through
-`transformers` (imported when called; the package is needed only there).
+`transformers` (imported when called; the package is needed only there);
+`lora_path=` merges a trained adapter (models/lora.py's npz) into the
+weights before quantization.
 
-Not ported yet, and raising until its module is: multi-LoRA serving
-(`register_lora`, `from_hf_dir(lora_path=)`, the `adapter` chat
-parameter; models/lora.py).
+Multi-LoRA serving: `register_lora` stacks each registered adapter into
+banks in the decoder's dtype (models/lora.py::lora_banks, index 0 = the
+base), and a chat selects one with ``adapter=name`` on the solo path and
+through the batcher, where rows with different adapters share one decode
+batch. LoRA chats never take the speculative path.
 """
 
 from __future__ import annotations
@@ -91,6 +95,11 @@ class LocalLLM:
         self._batcher = None  # optional continuous batcher (enable_batching)
         self._constraint_cache: Dict[str, Optional[Any]] = {}
         self._constraint_dev: Dict[str, Dict[str, Any]] = {}
+        # multi-LoRA serving state (register_lora): the registered trees
+        # with their alpha fallbacks, names -> bank index, stacked banks
+        self._lora_trees: list = []
+        self._lora_names: Dict[str, int] = {}
+        self._lora_banks = None
 
     @classmethod
     def from_hf_dir(cls, model_dir: str, *, max_len: int = 1024,
@@ -101,12 +110,9 @@ class LocalLLM:
         """Load a local LLaMA-family HF checkpoint directory (never
         downloads). `quantize=True` serves weight-only int8;
         `kv_quant=True` stores the KV cache as int8 rows + per-row scales
-        (models/decoder.py). `lora_path` (merging trained LoRA factors at
-        load) raises until models/lora.py is ported."""
-        if lora_path:
-            raise NotImplementedError(
-                "from_hf_dir(lora_path=): merging LoRA adapters is not "
-                "ported yet (models/lora.py)")
+        (models/decoder.py). `lora_path` merges trained LoRA factors
+        (models/lora.py `save_adapters` npz, ``lora_alpha`` where it
+        embeds no scale) into the weights at load, before quantization."""
         from transformers import (
             AutoConfig,
             AutoModelForCausalLM,
@@ -145,6 +151,15 @@ class LocalLLM:
         params = convert_hf_llama_state_dict(model.state_dict(), cfg,
                                              device=device)
         del model
+        if lora_path:
+            # merge the trained rank-r adapters into the dense weights
+            # BEFORE quantization: no serving overhead
+            from ..models.lora import load_adapters, lora_merge, lora_wrap_with
+
+            dev = params["tok_emb"].device
+            params = lora_merge(lora_wrap_with(
+                params, load_adapters(lora_path, device=dev),
+                alpha=lora_alpha))
         if quantize:
             params = quantize_decoder_params(params)
         tok = AutoTokenizer.from_pretrained(model_dir, local_files_only=True)
@@ -168,7 +183,7 @@ class LocalLLM:
             self.params, self.cfg, slots=slots, prompt_pad=prompt_pad,
             horizon=horizon, chunk=chunk, temperature=temperature,
             top_k=top_k, top_p=top_p, seed=seed, spec_k=spec_k,
-            **batcher_kw)
+            lora_banks=self._lora_banks, **batcher_kw)
         return self._batcher
 
     def register_prefix_text(self, text: str) -> int:
@@ -188,8 +203,63 @@ class LocalLLM:
 
     def register_lora(self, name: str, adapters_or_path, *,
                       alpha: float = 16.0) -> int:
-        raise NotImplementedError(
-            "multi-LoRA serving is not ported yet (models/lora.py)")
+        """Register a LoRA adapter for per-request serving. `name` is what
+        chat requests select with ``adapter=name``; `adapters_or_path` is
+        a `save_adapters` npz path or an adapter tree ({target: {"a", "b",
+        optional "s"}}, tensors or numpy). All registered adapters share
+        the frozen base: concurrent requests with different adapters
+        decode in ONE batch. The banks are rebuilt in the decoder's dtype
+        and handed to a live batcher. Returns the adapter's bank index.
+
+        Unlike `from_hf_dir(lora_path=)` (one adapter merged into the
+        weights), registered adapters are selectable per request."""
+        from ..models.lora import load_adapters, lora_banks
+
+        if isinstance(adapters_or_path, str):
+            tree = load_adapters(adapters_or_path, device=self.device)
+        else:
+            tree = {t: {k: (v if isinstance(v, torch.Tensor)
+                            else torch.from_numpy(np.array(v))).to(
+                                self.device)
+                        for k, v in ab.items()}
+                    for t, ab in adapters_or_path.items()}
+        self._lora_trees.append((tree, alpha))
+        # rebuild the stacked banks (index i + 1 = the i-th registered)
+        alphas = {a for _, a in self._lora_trees}
+        if len(alphas) > 1:
+            # lora_banks takes one alpha fallback; embedded "s" scales
+            # win, so mixed alphas only matter for scale-less artifacts
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "register_lora: mixed alpha fallbacks %s; artifacts "
+                "without embedded scales use the LAST alpha", alphas)
+        self._lora_banks = lora_banks([t for t, _ in self._lora_trees],
+                                      alpha=alpha,
+                                      dtype=getattr(torch, self.cfg.dtype))
+        idx = len(self._lora_trees)
+        self._lora_names[name] = idx
+        if self._batcher is not None:
+            self._batcher._banks = self._lora_banks
+        return idx
+
+    def _lora_for(self, adapter) -> Optional[Dict[str, Any]]:
+        """The solo path's ``lora`` argument (one row) for a named adapter
+        (None = the base; None too while nothing is registered)."""
+        if self._lora_banks is None:
+            if adapter:
+                raise ValueError(f"unknown adapter {adapter!r} "
+                                 "(none registered)")
+            return None
+        if adapter:
+            if adapter not in self._lora_names:
+                raise ValueError(f"unknown adapter {adapter!r}")
+            idx = self._lora_names[adapter]
+        else:
+            idx = 0
+        return {"aid": torch.full((1,), idx, dtype=torch.int32,
+                                  device=self.device),
+                "banks": self._lora_banks}
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(int(seed))
@@ -405,9 +475,7 @@ class LocalLLM:
                    **params: Any):
         from .router import ChatMessage, LLMResponse
 
-        if params.get("adapter"):
-            raise ValueError(f"unknown adapter {params['adapter']!r} "
-                             "(none registered)")
+        adapter = params.get("adapter") or None
         msgs = list(messages)
         if response_schema is not None:
             import json as _json
@@ -445,13 +513,14 @@ class LocalLLM:
                        "logprob": l} for t, l in zip(out_ids, lps)]
         elif (not wants_ext
               and self._batch_eligible(prompt, max_new, params, temperature,
-                                       top_p)):
+                                       top_p, adapter=adapter)):
             out_ids = await self._batcher.submit(
-                prompt, max_new=max_new, eos_id=self.eos_id)
+                prompt, max_new=max_new, eos_id=self.eos_id,
+                adapter_id=(self._lora_names[adapter] if adapter else 0))
         elif (wants_ext and self._batcher is not None
               and self._batcher.sampling_ext
               and self._batch_eligible(prompt, max_new, params, temperature,
-                                       top_p)
+                                       top_p, adapter=adapter)
               and (not has_constraint
                    or (cid := self._constraint_cid_for(response_schema))
                    is not None)):
@@ -461,6 +530,7 @@ class LocalLLM:
             # branch so the grammar guarantee holds.
             out_ids = await self._batcher.submit(
                 prompt, max_new=max_new, eos_id=self.eos_id,
+                adapter_id=(self._lora_names[adapter] if adapter else 0),
                 constraint_id=(cid if has_constraint else 0),
                 presence=presence, frequency=frequency,
                 logit_bias=logit_bias)
@@ -474,6 +544,7 @@ class LocalLLM:
                 None, lambda: self.generate_ids(
                     prompt, max_new=max_new, temperature=temperature,
                     top_p=top_p, seed=seed, speculative=self.speculative,
+                    lora=self._lora_for(adapter),
                     presence=presence, frequency=frequency,
                     constraint=constraint, logit_bias=logit_bias))
         text = self._apply_stop(self._decode(out_ids), params.get("stop"))
@@ -484,15 +555,20 @@ class LocalLLM:
                            logprobs=lp_out)
 
     def _batch_eligible(self, prompt, max_new, params, temperature,
-                        top_p) -> bool:
+                        top_p, adapter=None) -> bool:
         """A request rides the shared batch only when every sampling knob
         matches the batcher's AND the prompt fits prompt_pad (submit clips
         to the LAST prompt_pad tokens — a longer prompt would silently
         lose its head, i.e. the system prompt). Everything else falls back
-        to the solo path."""
+        to the solo path. An unknown adapter name raises."""
         b = self._batcher
         if b is None:
             return False
+        if adapter:
+            if adapter not in self._lora_names:
+                raise ValueError(f"unknown adapter {adapter!r}")
+            if b._banks is None:
+                return False  # batcher predates registration; solo path
         if temperature != b.temperature or top_p != b.top_p:
             return False
         if int(params.get("top_k") or b.top_k) != b.top_k:

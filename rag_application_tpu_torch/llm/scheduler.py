@@ -41,8 +41,13 @@ scheduling change, not a model change. Sampled batchers draw from
 `torch.Generator`s seeded by (seed, step) and (seed, request id), in
 place of the reference's folded JAX keys: the same law, other draws.
 
-Not ported yet: per-row LoRA adapters (`lora_banks`, `adapter_id`,
-models/lora.py) and TP-sharded parameters (parallel/*) raise
+Multi-LoRA serving (`lora_banks`, models/lora.py::lora_banks; index 0 =
+the base): each request names its adapter (`adapter_id`), a per-slot id
+vector rides every prefill and chunk step as the decoder's ``lora``
+argument, and rows with different adapters share one batch. An adapter
+row never reuses a registered prefix's K/V, which the base computed.
+
+Not ported yet: TP-sharded parameters (parallel/*) raise
 `NotImplementedError`.
 """
 
@@ -120,15 +125,17 @@ def _commit_row(logits, plen_total: int, rck, rcv, row: int, ck, cv,
 @torch.no_grad()
 def _prefill_row(params, cfg: DecoderConfig, ids: torch.Tensor, plen: int,
                  row: int, ck, cv, slot_pos, pos, tok, active,
-                 temperature: float, top_k: int, top_p: float, gen) -> None:
-    """Admit one request into batch row `row`: run its prompt (B = 1),
-    write the prompt K/V into the row's leading slots, reset the row's
-    slot_pos/pos/token/active state."""
+                 temperature: float, top_k: int, top_p: float, gen,
+                 lora=None) -> None:
+    """Admit one request into batch row `row`: run its prompt (B = 1,
+    through its adapter's `lora` if any), write the prompt K/V into the
+    row's leading slots, reset the row's slot_pos/pos/token/active
+    state."""
     dev = ids.device
     rck, rcv = init_kv_cache(cfg, 1, ids.shape[1], device=dev)
     logits, rck, rcv = prefill(
         params, cfg, ids, torch.tensor([plen], dtype=torch.int32,
-                                       device=dev), rck, rcv)
+                                       device=dev), rck, rcv, lora=lora)
     _commit_row(logits, plen, rck, rcv, row, ck, cv, slot_pos, pos, tok,
                 active, temperature, top_k, top_p, gen)
 
@@ -137,7 +144,7 @@ def _prefill_row(params, cfg: DecoderConfig, ids: torch.Tensor, plen: int,
 def _prefill_row_prefix(params, cfg: DecoderConfig, pck, pcv,
                         suffix: torch.Tensor, slen: int, row: int, ck, cv,
                         slot_pos, pos, tok, active, temperature: float,
-                        top_k: int, top_p: float, gen) -> None:
+                        top_k: int, top_p: float, gen, lora=None) -> None:
     """Admit a request whose prompt starts with a REGISTERED prefix: the
     prefix's K/V (pck/pcv, (L, 1, p0, KVH, hd)) was computed once at
     registration, so only the suffix runs through the model. The row
@@ -151,7 +158,7 @@ def _prefill_row_prefix(params, cfg: DecoderConfig, pck, pcv,
     _paste_row(rcv, pcv, 0)
     positions = (p0 + torch.arange(Ts, dtype=torch.int32, device=dev))[None]
     hidden, rck, rcv = forward(params, cfg, suffix, positions, rck, rcv,
-                               write_slot=p0)
+                               write_slot=p0, lora=lora)
     logits = _project(params, cfg, hidden[:, slen - 1])
     _commit_row(logits, p0 + slen, rck, rcv, row, ck, cv, slot_pos, pos,
                 tok, active, temperature, top_k, top_p, gen)
@@ -243,7 +250,7 @@ def _decode_chunk_spec(params, cfg: DecoderConfig, chunk: int, K: int,
                        tok, pos, active, slot_pos, hist, base_slot: int,
                        eos, ck, cv, temperature: float = 0.0,
                        top_k: int = 64, top_p: float = 1.0,
-                       gen_for=None, step0: int = 0):
+                       gen_for=None, step0: int = 0, lora=None):
     """`chunk` speculative block steps.
 
     Each step drafts K tokens per row from the row's own history and
@@ -267,7 +274,8 @@ def _decode_chunk_spec(params, cfg: DecoderConfig, chunk: int, K: int,
         slot_pos[:, head:head + K + 1] = torch.where(
             active[:, None], positions, DEAD)
         hidden, ck, cv = forward(params, cfg, x, positions, ck, cv,
-                                 write_slot=head, slot_positions=slot_pos)
+                                 write_slot=head, slot_positions=slot_pos,
+                                 lora=lora)
         blk = _project(params, cfg, hidden)                      # (B,K+1,V)
         gen = None if gen_for is None else gen_for(step0 + j)
         g, a = _spec_accept(blk, draft, temperature, top_k, top_p, gen)
@@ -307,7 +315,7 @@ def _decode_chunk_spec_ext(params, cfg: DecoderConfig, chunk: int, K: int,
                            top_k: int = 64, top_p: float = 1.0,
                            counts=None, bias=None, pres=None, freq=None,
                            cstate=None, cid=None, cbanks=None,
-                           gen_for=None, step0: int = 0):
+                           gen_for=None, step0: int = 0, lora=None):
     """`_decode_chunk_spec` composed with the extended-sampling transform
     (`_ext_mask`): every verify position i is masked with the DFA state
     and token counts AFTER consuming x_0..x_i — the per-step ordering of
@@ -333,7 +341,8 @@ def _decode_chunk_spec_ext(params, cfg: DecoderConfig, chunk: int, K: int,
         slot_pos[:, head:head + K + 1] = torch.where(
             active[:, None], positions, DEAD)
         hidden, ck, cv = forward(params, cfg, x, positions, ck, cv,
-                                 write_slot=head, slot_positions=slot_pos)
+                                 write_slot=head, slot_positions=slot_pos,
+                                 lora=lora)
         blk = _project(params, cfg, hidden)                      # (B,K+1,V)
 
         # ---- ext-state evolution along the draft: position i's mask
@@ -373,7 +382,8 @@ def _decode_chunk_spec_ext(params, cfg: DecoderConfig, chunk: int, K: int,
 @torch.no_grad()
 def _decode_chunk(params, cfg: DecoderConfig, chunk: int, tok, pos, active,
                   slot_pos, base_slot: int, step0: int, temperature: float,
-                  top_k: int, top_p: float, eos, gen_for, ck, cv):
+                  top_k: int, top_p: float, eos, gen_for, ck, cv,
+                  lora=None):
     """Run `chunk` decode steps for all rows.
 
     Step j writes every row's K/V at physical slot base_slot + j and
@@ -393,7 +403,8 @@ def _decode_chunk(params, cfg: DecoderConfig, chunk: int, tok, pos, active,
         ok = active & (tok != eos)
         slot_pos[:, base_slot + j] = torch.where(ok, pos, DEAD)
         logits, ck, cv = decode_step(params, cfg, tok, pos, base_slot + j,
-                                     ck, cv, slot_positions=slot_pos)
+                                     ck, cv, slot_positions=slot_pos,
+                                     lora=lora)
         nxt = sample_logits(logits, None if gen_for is None
                             else gen_for(step0 + j), temperature=temperature,
                             top_k=top_k, top_p=top_p)
@@ -409,7 +420,7 @@ def _decode_chunk_ext(params, cfg: DecoderConfig, chunk: int, tok, pos,
                       active, slot_pos, base_slot: int, step0: int,
                       temperature: float, top_k: int, top_p: float, eos,
                       gen_for, ck, cv, counts, bias, pres, freq, cstate,
-                      cid, cbanks):
+                      cid, cbanks, lora=None):
     """`_decode_chunk` with per-request extended sampling: counts (B, V)
     token counts for the OpenAI penalties (prompt included, seeded at
     admission), bias (B, V) logit_bias planes, pres/freq (B,) penalty
@@ -436,7 +447,8 @@ def _decode_chunk_ext(params, cfg: DecoderConfig, chunk: int, tok, pos,
         cstate = torch.clamp(cstate, min=0)  # never index with DEAD
         slot_pos[:, base_slot + j] = torch.where(ok, pos, DEAD)
         logits, ck, cv = decode_step(params, cfg, tok, pos, base_slot + j,
-                                     ck, cv, slot_positions=slot_pos)
+                                     ck, cv, slot_positions=slot_pos,
+                                     lora=lora)
         masked = _ext_mask(logits, counts, bias, pres, freq, cstate, cid,
                            cbanks, eos)
         nxt = sample_logits(masked, None if gen_for is None
@@ -455,7 +467,7 @@ def _prefill_row_ext(params, cfg: DecoderConfig, ids: torch.Tensor,
                      counts, bias, pres, freq, cstate, cid, cbanks,
                      bias_row: torch.Tensor, p: float, f: float, c: int,
                      eos: int, temperature: float, top_k: int, top_p: float,
-                     gen) -> None:
+                     gen, lora=None) -> None:
     """`_prefill_row` for an ext batcher: additionally seeds the row's
     sampling-extension planes (prompt token counts for the penalties,
     logit_bias plane, penalty scalars, DFA state 0 + bank id) and samples
@@ -466,7 +478,7 @@ def _prefill_row_ext(params, cfg: DecoderConfig, ids: torch.Tensor,
     rck, rcv = init_kv_cache(cfg, 1, T, device=dev)
     logits, rck, rcv = prefill(
         params, cfg, ids, torch.tensor([plen], dtype=torch.int32,
-                                       device=dev), rck, rcv)
+                                       device=dev), rck, rcv, lora=lora)
     V = counts.shape[1]
     in_prompt = (torch.arange(T, device=dev) < plen).to(counts.dtype)
     rc = torch.zeros((V,), dtype=counts.dtype, device=dev).index_add_(
@@ -563,10 +575,6 @@ class ContinuousBatcher:
                  sampling_ext: bool = False, max_constraints: int = 8):
         if chunk < 1 or horizon < chunk:
             raise ValueError("need chunk >= 1 and horizon >= chunk")
-        if lora_banks is not None:
-            raise NotImplementedError(
-                "multi-LoRA serving (lora_banks) is not ported yet "
-                "(models/lora.py)")
         _no_tp(params)
         # spec_k works for greedy (argmax-agreement acceptance) AND
         # sampled batchers (rejection-sampled acceptance preserving the
@@ -579,6 +587,11 @@ class ContinuousBatcher:
         # bank-slot eviction while the row decodes, even if the
         # submitting consumer already abandoned its stream
         self._row_cid = np.zeros((slots,), np.int32)
+        # multi-LoRA serving: stacked adapter banks (models/lora.py::
+        # lora_banks; index 0 = base) and each row's adapter id, which
+        # every prefill and chunk step reads as the decoder's `lora`
+        self._banks = lora_banks
+        self._aid = np.zeros((slots,), np.int32)
         self.B, self.T = slots, prompt_pad
         self.S = prompt_pad + horizon
         self.chunk = chunk
@@ -637,7 +650,7 @@ class ContinuousBatcher:
             self._restack_constraints()
         self._reset_device_state()
         self._slots = [_Slot() for _ in range(slots)]
-        # (request id, prompt ids, max_new, eos_id, queue, ext)
+        # (request id, prompt ids, max_new, eos_id, queue, adapter id, ext)
         self._pending: asyncio.Queue = asyncio.Queue()
         self._next_id = 0
         self._task: Optional[asyncio.Task] = None
@@ -700,8 +713,9 @@ class ContinuousBatcher:
                      logit_bias=None) -> List[int]:
         """Generate up to `max_new` tokens for one prompt; returns the
         emitted ids (eos excluded). Concurrency-safe: callers share the
-        batch. `adapter_id` other than 0 (LoRA, models/lora.py) is not
-        ported yet and raises. `constraint_id` (register_constraint),
+        batch. `adapter_id` indexes the instance's LoRA banks (0 = the
+        base model): rows with different adapters decode together.
+        `constraint_id` (register_constraint),
         presence/frequency and logit_bias ((V,) additive plane) need
         sampling_ext=True; such requests still share the batch with plain
         ones."""
@@ -728,10 +742,11 @@ class ContinuousBatcher:
         ids = list(prompt_ids)[-self.T:]
         if not ids:
             raise ValueError("empty prompt")
-        if adapter_id:
-            raise NotImplementedError(
-                f"adapter_id {adapter_id}: per-row LoRA adapters are not "
-                "ported yet (models/lora.py)")
+        n_adapters = (0 if not self._banks else
+                      next(iter(self._banks.values()))["a"].shape[1] - 1)
+        if not 0 <= adapter_id <= n_adapters:
+            raise ValueError(f"adapter_id {adapter_id} out of range "
+                             f"(have {n_adapters} adapters)")
         ext = None
         wants_ext = (constraint_id or presence or frequency
                      or logit_bias is not None)
@@ -767,7 +782,7 @@ class ContinuousBatcher:
         self._next_id += 1
         try:
             await self._pending.put((rid, ids, int(max_new), int(eos_id), q,
-                                     ext))
+                                     int(adapter_id), ext))
             self._ensure_loop()
             while True:
                 t = await q.get()
@@ -901,8 +916,18 @@ class ContinuousBatcher:
     def _free_rows(self) -> List[int]:
         return [i for i, s in enumerate(self._slots) if s.queue is None]
 
+    def _lora(self, aid_vec) -> Optional[Dict[str, Any]]:
+        """The decoder's ``lora`` argument for rows with adapter ids
+        ``aid_vec`` (a copy on the device); None without banks."""
+        if self._banks is None:
+            return None
+        return {"aid": torch.tensor(np.asarray(aid_vec), dtype=torch.int32,
+                                    device=self.device),
+                "banks": self._banks}
+
     @torch.no_grad()
-    def _admit(self, row: int, rid: int, ids: List[int], ext=None,
+    def _admit(self, row: int, rid: int, ids: List[int],
+               adapter_id: int = 0, ext=None,
                eos_id: int = -1) -> Optional[int]:
         """Device-side admission (and the spec-mode first-token read).
         Runs in an executor thread; returns the first sampled token in
@@ -913,7 +938,9 @@ class ContinuousBatcher:
         padded[0, :len(ids)] = torch.as_tensor(ids, dtype=torch.int32)
         padded = padded.to(dev)
         gen = self._gen_for(2 ** 20 + rid)
+        self._aid[row] = adapter_id
         self._row_cid[row] = ext[0] if ext is not None else 0
+        row_lora = self._lora([adapter_id])
         state = (self.ck, self.cv, self.slot_pos, self.pos, self.tok,
                  self.active)
         knobs = (self.temperature, self.top_k, self.top_p, gen)
@@ -927,7 +954,7 @@ class ContinuousBatcher:
                 self.params, self.cfg, padded, len(ids), row, *state,
                 self.counts, self.bias, self.pres, self.freq, self.cstate,
                 self.cid, self._cbanks, torch.as_tensor(vec, device=dev),
-                p, f, c, eos_id, *knobs)
+                p, f, c, eos_id, *knobs, row_lora)
         else:
             if self.sampling_ext:
                 # plain admission into an ext batcher: the fast paths
@@ -936,9 +963,12 @@ class ContinuousBatcher:
                 # whatever the row's previous occupant left in the planes
                 _ext_reset_row(self.counts, self.bias, self.pres, self.freq,
                                self.cstate, self.cid, row)
-            match = next(((pids, pck, pcv) for pids, pck, pcv in self._prefixes
-                          if len(ids) > len(pids)
-                          and tuple(ids[:len(pids)]) == pids), None)
+            # prefix K/V were computed through the BASE model: an adapter
+            # changes every projection, so adapter rows take a full prefill
+            match = None if adapter_id != 0 else next(
+                ((pids, pck, pcv) for pids, pck, pcv in self._prefixes
+                 if len(ids) > len(pids)
+                 and tuple(ids[:len(pids)]) == pids), None)
             if match is not None:
                 pids, pck, pcv = match
                 sfx = ids[len(pids):]
@@ -955,11 +985,11 @@ class ContinuousBatcher:
                 spad[0, :len(sfx)] = torch.as_tensor(sfx, dtype=torch.int32)
                 _prefill_row_prefix(self.params, self.cfg, pck, pcv,
                                     spad.to(dev), len(sfx), row, *state,
-                                    *knobs)
+                                    *knobs, row_lora)
                 self.prefix_hits += 1
             else:
                 _prefill_row(self.params, self.cfg, padded, len(ids), row,
-                             *state, *knobs)
+                             *state, *knobs, row_lora)
         # the shared write head must never re-enter a live prompt range
         # (possible after compaction shrank it): decode writes hit EVERY
         # row at the shared slot and would clobber this prompt's K/V.
@@ -997,6 +1027,7 @@ class ContinuousBatcher:
         if s.queue is not None:
             s.queue.put_nowait(None)
         self._slots[row] = _Slot()
+        self._aid[row] = 0
         self._row_cid[row] = 0
         self.active[row] = False
         # clear the row's slot map so compaction never counts (and the
@@ -1017,7 +1048,7 @@ class ContinuousBatcher:
             self._slots = [_Slot() for _ in range(self.B)]
             while True:
                 try:
-                    _, _, _, _, q, _ = self._pending.get_nowait()
+                    _, _, _, _, q, _, _ = self._pending.get_nowait()
                 except asyncio.QueueEmpty:
                     break
                 q.put_nowait(exc)
@@ -1081,6 +1112,7 @@ class ContinuousBatcher:
         while further chunks launch."""
         eos = torch.as_tensor(eos_vec, device=self.device)
         base = (self.params, self.cfg, self.chunk)
+        lora = self._lora(self._aid)
         if self.spec_k and self.sampling_ext:
             (self.tok, self.pos, self.active, self.counts, self.cstate,
              out) = _decode_chunk_spec_ext(
@@ -1088,14 +1120,14 @@ class ContinuousBatcher:
                 self.slot_pos, self.hist, self.head, eos, self.ck, self.cv,
                 self.temperature, self.top_k, self.top_p, self.counts,
                 self.bias, self.pres, self.freq, self.cstate, self.cid,
-                self._cbanks, self._gen_for, self.steps)
+                self._cbanks, self._gen_for, self.steps, lora)
             return out                                      # (chunk, B, K+1)
         if self.spec_k:
             self.tok, self.pos, self.active, out = _decode_chunk_spec(
                 *base, use_k, self.tok, self.pos, self.active,
                 self.slot_pos, self.hist, self.head, eos, self.ck, self.cv,
                 self.temperature, self.top_k, self.top_p, self._gen_for,
-                self.steps)
+                self.steps, lora)
             return out                                      # (chunk, B, K+1)
         if self.sampling_ext:
             (self.tok, self.pos, self.active, self.counts, self.cstate,
@@ -1104,12 +1136,12 @@ class ContinuousBatcher:
                 self.head, self.steps, self.temperature, self.top_k,
                 self.top_p, eos, self._gen_for, self.ck, self.cv,
                 self.counts, self.bias, self.pres, self.freq, self.cstate,
-                self.cid, self._cbanks)
+                self.cid, self._cbanks, lora)
             return out[:, :, None]                          # (chunk, B, 1)
         self.tok, self.pos, self.active, out = _decode_chunk(
             *base, self.tok, self.pos, self.active, self.slot_pos,
             self.head, self.steps, self.temperature, self.top_k, self.top_p,
-            eos, self._gen_for, self.ck, self.cv)
+            eos, self._gen_for, self.ck, self.cv, lora)
         return out[:, :, None]                              # (chunk, B, 1)
 
     async def _serve(self) -> None:
@@ -1128,12 +1160,13 @@ class ContinuousBatcher:
                 admitted = False
                 for row in self._free_rows():
                     try:
-                        (rid, ids, max_new,
-                         eos_id, q, ext) = self._pending.get_nowait()
+                        (rid, ids, max_new, eos_id, q, adapter_id,
+                         ext) = self._pending.get_nowait()
                     except asyncio.QueueEmpty:
                         break
                     first = await loop.run_in_executor(
-                        None, self._admit, row, rid, ids, ext, eos_id)
+                        None, self._admit, row, rid, ids, adapter_id, ext,
+                        eos_id)
                     self._finish_admit(row, rid, max_new, eos_id, q, first)
                     admitted = True
                 busy = [(i, s.request_id) for i, s in enumerate(self._slots)

@@ -35,8 +35,22 @@ step masks the sampling logits to the tokens the row's DFA state allows
 (eos exactly in accepting states), then steps the state by the consumed
 token.
 
-Not ported yet: per-row LoRA adapters (`lora=`, models/lora.py) raise
-`NotImplementedError`.
+LoRA (models/lora.py) enters two ways, as in the reference: a wrapped
+``{"w", "a", "b", "s"}`` weight leaf adds ``((x @ a) @ b) * s`` to its
+base product (`_mm`), and `forward(lora={"aid", "banks"})` adds each
+batch row's own rank-r delta from stacked adapter banks, in both the
+einsum and the decode-kernel branch. The decode kernel itself is
+unchanged: the deltas act on the projections around attention.
+
+Training runs the same `forward` under autograd (models/train.py,
+models/lora.py). When a parameter or bank requires grad, a prefill-style
+call (`write_slot=None`) attends over each layer's fresh K/V instead of
+views of the cache, as the reference's layer scan takes the cache
+``xs -> ys``: the in-place cache writes of the next layer (or of a
+`remat` recompute) then never touch a tensor autograd saved. The cache
+is still written, detached. `remat=True` checkpoints each layer
+(`torch.utils.checkpoint`, non-reentrant) with the numerics of
+``remat=False``.
 """
 
 from __future__ import annotations
@@ -48,6 +62,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..ops import decode_attn as _da
 from ..utils import DeviceLike, resolve_device
@@ -114,10 +129,22 @@ def _as_tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a), device=device).to(dtype)
 
 
-def _no_lora(lora) -> None:
-    if lora is not None:
-        raise NotImplementedError(
-            "per-row LoRA adapters are not ported yet (models/lora.py)")
+def _tensors(tree: Any):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def _trains(params: Dict[str, Any], lora: Optional[Dict[str, Any]]) -> bool:
+    """Whether autograd records this forward: grad mode is on and a
+    parameter or adapter bank requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    return any(t.requires_grad for t in _tensors(params)) or (
+        lora is not None
+        and any(t.requires_grad for t in _tensors(lora["banks"])))
 
 
 # ------------------------------------------------------------------ params
@@ -224,11 +251,24 @@ def quantize_decoder_params(params: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def _mm(x: torch.Tensor, w: Any) -> torch.Tensor:
-    """x @ w for a plain matrix or a quantized {"q","s"} pair; the scale
-    is cast to x.dtype before it multiplies, as in the reference."""
+    """x @ w for a plain matrix, a quantized {"q","s"} pair, or a
+    LoRA-wrapped {"w","a","b","s"} leaf (models/lora.py): the base
+    product plus ((x @ a) @ b) * s, each factor cast to x.dtype, over a
+    plain or quantized base; the (in, out) product is never formed. The
+    quantized scale is cast to x.dtype before it multiplies, as in the
+    reference."""
     if isinstance(w, dict):
+        if "a" in w:  # LoRA wrapper
+            y = _mm(x, w["w"])
+            lo = (x @ w["a"].to(x.dtype)) @ w["b"].to(x.dtype)
+            return y + lo * w["s"].to(x.dtype)
         y = x @ w["q"].to(x.dtype)
         return y * w["s"].to(x.dtype)
+    if w.dtype != x.dtype:
+        # the reference's type promotion (a bf16 merge of an int8 base
+        # in a float32 model computes in float32)
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
     return x @ w
 
 
@@ -326,7 +366,11 @@ def _apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 
 def _layer(p: Any, i: int) -> Any:
-    return {k: v[i] for k, v in p.items()} if isinstance(p, dict) else p[i]
+    """Layer i of a stacked leaf; dict leaves (int8 pairs, caches, LoRA
+    wrappers over either) slice leaf by leaf."""
+    if isinstance(p, dict):
+        return {k: _layer(v, i) for k, v in p.items()}
+    return p[i]
 
 
 def _write(cache: Any, new: Any, i: int, start: int) -> None:
@@ -349,7 +393,8 @@ def forward(
     *,
     write_slot: Optional[int] = None,  # decode: SCALAR slot, all rows
     slot_positions: Optional[torch.Tensor] = None,  # (B, S) pos per slot
-    lora: Optional[Dict[str, Any]] = None,
+    remat: bool = False,               # checkpoint each layer (training)
+    lora: Optional[Dict[str, Any]] = None,  # per-ROW adapters, see below
 ) -> Tuple[torch.Tensor, Any, Any]:
     """One forward pass over T tokens against the cache.
 
@@ -361,12 +406,20 @@ def forward(
     Visibility: the query at absolute position p sees slot s iff
     slot_positions[b, s] <= p; the default is slot s holds position s.
 
+    Multi-LoRA serving (`lora`): {"aid": (B,) int, "banks": {target:
+    {"a": (L, N, in, r), "b": (L, N, r, out)}}} — each batch row applies
+    its own adapter, an index into the stacked banks (models/lora.py::
+    lora_banks builds them with index 0 = the zero adapter, the base).
+
     Returns (hidden (B, T, H), cache_k, cache_v)."""
-    _no_lora(lora)
     B, T = ids.shape
     S = cache_len(cache_k)
     dt = _dtype(cfg)
     hd, kvh, G = cfg.head_dim, cfg.kv_heads, cfg.q_groups
+    train = write_slot is None and _trains(params, lora)
+    if train and cfg.kv_quant:
+        raise ValueError("an int8 KV cache (kv_quant) cannot be trained "
+                         "through: train with kv_quant=False")
     x = _take_emb(params["tok_emb"], ids, dt)
     cos, sin = _rope(positions, cfg)
     if slot_positions is None:
@@ -378,17 +431,35 @@ def forward(
     use_kernel = (cfg.kv_quant and cfg.attn_kernel and T == 1
                   and _attn_kernel_ok(cfg, S))
     start = 0 if write_slot is None else int(write_slot)
+    layer_params = {k: params[k] for k in
+                    ("attn_norm", "ffn_norm", "wq", "wk", "wv", "wo",
+                     "w_gate", "w_up", "w_down", "bq", "bk", "bv")
+                    if k in params}
+    if lora is not None:
+        # select each row's factors ONCE (a gather over the adapter
+        # axis); the (L, B, in, r) results slice per layer like weights
+        aid = _as_tensor(lora["aid"], torch.long, ids.device)
+        for t, bank in lora["banks"].items():
+            layer_params[t + ":la"] = bank["a"].index_select(1, aid)
+            layer_params[t + ":lb"] = bank["b"].index_select(1, aid)
 
     def kv(c):
         return c["q"].to(dt) if cfg.kv_quant else c
 
-    for i in range(cfg.num_layers):
-        lp = {k: _layer(params[k], i) for k in
-              ("attn_norm", "ffn_norm", "wq", "wk", "wv", "wo",
-               "w_gate", "w_up", "w_down", "bq", "bk", "bv")
-              if k in params}
+    def proj(h, lp, name):
+        """Dense projection + this row's rank-r LoRA delta (if any)."""
+        y = _mm(h, lp[name])
+        la = lp.get(name + ":la")                          # (B, in, r)
+        if la is None:
+            return y
+        lo = torch.einsum("bth,bhr->btr", h, la.to(h.dtype))
+        return y + torch.einsum("btr,bro->bto", lo,
+                                lp[name + ":lb"].to(h.dtype))
+
+    def layer(x, i):
+        lp = _layer(layer_params, i)
         h = _rmsnorm(x, lp["attn_norm"], cfg.eps)
-        q, k, v = _mm(h, lp["wq"]), _mm(h, lp["wk"]), _mm(h, lp["wv"])
+        q, k, v = proj(h, lp, "wq"), proj(h, lp, "wk"), proj(h, lp, "wv")
         if "bq" in lp:  # Qwen2-family projection biases, pre-RoPE
             q = q + lp["bq"].to(q.dtype)
             k = k + lp["bk"].to(k.dtype)
@@ -398,9 +469,18 @@ def forward(
         v = v.reshape(B, T, kvh, hd)
         if cfg.kv_quant:
             k, v = _kv_quantize(k), _kv_quantize(v)
-        _write(cache_k, k, i, start)
-        _write(cache_v, v, i, start)
-        ck, cv = _layer(cache_k, i), _layer(cache_v, i)
+        if train:
+            # attend over this layer's fresh K/V (and the cache's slots
+            # past T); the cache gets a detached copy
+            with torch.no_grad():
+                _write(cache_k, k.detach(), i, start)
+                _write(cache_v, v.detach(), i, start)
+            ck = k if S == T else torch.cat([k, cache_k[i, :, T:]], dim=1)
+            cv = v if S == T else torch.cat([v, cache_v[i, :, T:]], dim=1)
+        else:
+            _write(cache_k, k, i, start)
+            _write(cache_v, v, i, start)
+            ck, cv = _layer(cache_k, i), _layer(cache_v, i)
 
         # grouped-query attention without materializing repeated K/V
         qg = q.reshape(B, T, kvh, G, hd)
@@ -424,10 +504,17 @@ def forward(
             out = torch.einsum("bkgts,bskh->btkgh", probs.to(dt).float(),
                                kv(cv).float()).to(dt)
             del probs
-        x = x + _mm(out.reshape(B, T, cfg.heads * hd), lp["wo"])
+        x = x + proj(out.reshape(B, T, cfg.heads * hd), lp, "wo")
         h = _rmsnorm(x, lp["ffn_norm"], cfg.eps)
-        x = x + _mm(F.silu(_mm(h, lp["w_gate"])) * _mm(h, lp["w_up"]),
-                    lp["w_down"])
+        return x + proj(F.silu(proj(h, lp, "w_gate")) * proj(h, lp, "w_up"),
+                        lp, "w_down")
+
+    for i in range(cfg.num_layers):
+        if remat and train:
+            x = torch.utils.checkpoint.checkpoint(layer, x, i,
+                                                  use_reentrant=False)
+        else:
+            x = layer(x, i)
     return x, cache_k, cache_v
 
 
@@ -553,7 +640,6 @@ def generate_logprobs(params: Dict[str, Any], cfg: DecoderConfig,
     (numpy or tensors); ``rng`` is the generator sampled draws come from
     (unused when greedy). Presence/frequency penalties and `logit_bias`
     shape sampling only, as in the reference."""
-    _no_lora(lora)
     dev = _params_device(params)
     ids = _as_tensor(ids, torch.int32, dev)
     prompt_len = _as_tensor(prompt_len, torch.int32, dev)
@@ -576,7 +662,7 @@ def generate_logprobs(params: Dict[str, Any], cfg: DecoderConfig,
         torch.where(s_idx < pl, s_idx, torch.full_like(s_idx, 2 ** 30)),
         pl + (s_idx - T)).to(torch.int32)
     logits, cache_k, cache_v = prefill(params, cfg, ids, prompt_len,
-                                       cache_k, cache_v)
+                                       cache_k, cache_v, lora=lora)
 
     penalize = presence != 0.0 or frequency != 0.0
     rows_b = torch.arange(B, device=dev)
@@ -640,7 +726,7 @@ def generate_logprobs(params: Dict[str, Any], cfg: DecoderConfig,
             gstate = gstate.clamp(min=0)  # never index with DEAD
         logits, cache_k, cache_v = decode_step(
             params, cfg, tok, pos, T + step, cache_k, cache_v,
-            slot_positions=slot_pos)
+            slot_positions=slot_pos, lora=lora)
         # rows that just emitted eos stop: their buffered token is pad
         tok, tok_lp = emit(logits, newly_done)
         pos = torch.where(newly_done, pos, pos + 1)

@@ -6,8 +6,10 @@ for the CPU. `restore_spaces`/`checkpoint_spaces` load and save on the
 app's device. `RAGTPU_LLM_PROVIDER=local` loads `LocalLLM.from_hf_dir`
 (which needs `transformers`); its `RAGTPU_LOCAL_BATCH_*` settings turn on
 continuous batching and `RAGTPU_LOCAL_SPECULATIVE=1` prompt-lookup
-speculation. LoRA serving (`RAGTPU_LOCAL_LORA*`) raises until
-models/lora.py is ported.
+speculation. `RAGTPU_LOCAL_LORA` (with `RAGTPU_LOCAL_LORA_ALPHA`) merges
+one adapter npz into the weights at load, and
+`RAGTPU_LOCAL_LORA_ADAPTERS` (``name=path,...``) registers adapters that
+chat requests select with ``{"adapter": name}`` (models/lora.py).
 
 Boots the full stack the way the reference's docker-compose assembles its
 services (app/main.py lifespan: connect stores, spawn background tasks) —

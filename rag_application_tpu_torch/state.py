@@ -10,8 +10,9 @@ arrays; bf16 planes arrive as `ml_dtypes.bfloat16`, which
 bits and rebuilt with ``.view(torch.bfloat16)``. The decoder's and the
 text encoder's weights are carried the same way (`decoder_params_from_jax`,
 `encoder_params_from_jax`, and `bert_params_from_jax` for the BERT
-encoder), so both packages run the same model. This module imports no
-JAX.
+encoder), so both packages run the same model; LoRA adapters and wrapped
+decoder trees cross with `adapters_from_jax` and back with
+`adapters_to_numpy`. This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -108,29 +109,72 @@ def sparse_from_numpy(cfg: SparseConfig, arrays: Mapping[str, np.ndarray],
     return idx
 
 
+def _float_leaf(name: str, a: Any, device, want=None) -> torch.Tensor:
+    """A carried float leaf: uint16 bits -> bf16, float32 as it is;
+    ``want`` (a numpy dtype), where given, is the only one accepted."""
+    a = np.asarray(a)
+    if a.dtype not in (np.uint16, np.float32) or (want is not None
+                                                  and a.dtype != want):
+        raise TypeError(f"{name}: expected "
+                        f"{np.dtype(want) if want else 'uint16 or float32'}"
+                        f" leaves, got {a.dtype}")
+    return (bf16_from_bits(a, device) if a.dtype == np.uint16
+            else _tensor(a, device))
+
+
+def _quantized_from_jax(name: str, leaf: Mapping[str, Any],
+                        device) -> Dict[str, torch.Tensor]:
+    q, s = np.asarray(leaf["q"]), np.asarray(leaf["s"])
+    if q.dtype != np.int8 or s.dtype != np.float32:
+        raise TypeError(f"{name}: quantized leaves are int8 q and "
+                        f"f32 s, got {q.dtype} and {s.dtype}")
+    return {"q": _tensor(q, device), "s": _tensor(s, device)}
+
+
+def adapters_from_jax(adapters: Mapping[str, Any],
+                      device: DeviceLike = None) -> Dict[str, Any]:
+    """A LoRA adapter tree ({target: {"a", "b", optional "s"}}, as
+    models/lora.py's `lora_adapters` or `load_adapters` give it) from the
+    JAX package, as numpy: bf16 factors as their uint16 bits, float32
+    factors and scales as they are."""
+    return {t: {k: _float_leaf(f"{t}.{k}", v, device,
+                               np.float32 if k == "s" else None)
+                for k, v in ab.items()}
+            for t, ab in adapters.items()}
+
+
+def adapters_to_numpy(adapters: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's adapter tree as float32 numpy (bf16 widens exactly),
+    to compare with the JAX package's factors."""
+    return {t: {k: v.detach().float().cpu().numpy() for k, v in ab.items()}
+            for t, ab in adapters.items()}
+
+
 def decoder_params_from_jax(params: Mapping[str, Any], cfg: DecoderConfig,
                             device: DeviceLike = None) -> Dict[str, Any]:
     """The port's decoder params from a JAX decoder param tree given as
     numpy arrays: bf16 leaves as their uint16 bits, float32 leaves as
     they are, and int8-quantized ``{"q", "s"}`` leaves carried exactly.
     The leaves' float type must be ``cfg.dtype``'s (norms and biases
-    included), as the JAX package makes them."""
+    included), as the JAX package makes them. A LoRA-wrapped leaf
+    (``{"w", "a", "b", "s"}``, models/lora.py) carries its base the same
+    way and its factors as `adapters_from_jax` does."""
     want = np.uint16 if cfg.dtype == "bfloat16" else np.dtype(cfg.dtype)
+
+    def base(name, leaf):
+        if isinstance(leaf, Mapping):
+            return _quantized_from_jax(name, leaf, device)
+        return _float_leaf(name, leaf, device, want)
+
     out: Dict[str, Any] = {}
     for name, leaf in params.items():
-        if isinstance(leaf, Mapping):
-            q, s = np.asarray(leaf["q"]), np.asarray(leaf["s"])
-            if q.dtype != np.int8 or s.dtype != np.float32:
-                raise TypeError(f"{name}: quantized leaves are int8 q and "
-                                f"f32 s, got {q.dtype} and {s.dtype}")
-            out[name] = {"q": _tensor(q, device), "s": _tensor(s, device)}
-            continue
-        a = np.asarray(leaf)
-        if a.dtype != want:
-            raise TypeError(f"{name}: {cfg.dtype} config expects "
-                            f"{np.dtype(want)} leaves, got {a.dtype}")
-        out[name] = (bf16_from_bits(a, device) if a.dtype == np.uint16
-                     else _tensor(a, device))
+        if isinstance(leaf, Mapping) and "a" in leaf:
+            out[name] = {"w": base(name, leaf["w"]),
+                         **adapters_from_jax(
+                             {name: {k: leaf[k] for k in ("a", "b", "s")}},
+                             device)[name]}
+        else:
+            out[name] = base(name, leaf)
     return out
 
 

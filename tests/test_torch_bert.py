@@ -202,8 +202,45 @@ def test_from_hf_dir_matches_jax(tmp_path, kind):
     assert got == want and got
 
 
-def test_from_hf_dir_lora_path_raises(tmp_path):
-    from rag_application_tpu_torch.llm.local import LocalLLM
+@pytest.mark.parametrize("kind", ["plain", "int8"])
+def test_from_hf_dir_lora_path_raises(tmp_path, kind):
+    """`from_hf_dir(lora_path=)` (which raised before models/lora.py was
+    ported) merges an adapter npz written by the JAX `save_adapters`
+    into the weights before quantization: chat texts equal the JAX
+    `from_hf_dir` with the same file (one target without a stored scale,
+    so `lora_alpha` applies to it), and differ from the base's."""
+    import jax
+    import jax.numpy as jnp
 
-    with pytest.raises(NotImplementedError, match="models/lora.py"):
-        LocalLLM.from_hf_dir(str(tmp_path), lora_path="adapters.npz")
+    from rag_application_tpu.llm.local import LocalLLM as JLocal
+    from rag_application_tpu.models.lora import save_adapters
+    from rag_application_tpu_torch.llm.local import LocalLLM
+    from rag_application_tpu_torch.llm.router import ChatMessage
+
+    d = _llama_dir(tmp_path / "model")
+    key = jax.random.PRNGKey(4)
+    ads, wrapped = {}, {}
+    for t, fin, fout in (("wq", 64, 64), ("wv", 64, 32), ("wo", 64, 64)):
+        key, k1, k2 = jax.random.split(key, 3)
+        ads[t] = {"a": jax.random.normal(k1, (2, fin, 4)) * 0.5,
+                  "b": jax.random.normal(k2, (2, 4, fout)) * 0.5}
+        if t != "wo":
+            wrapped[t] = {"s": jnp.full((2, 1, 1), 3.0, jnp.float32)}
+    npz = str(tmp_path / "adapters.npz")
+    save_adapters(ads, npz, wrapped=wrapped)
+    kw = dict(dtype="float32", max_len=64)
+    if kind == "int8":
+        kw.update(quantize=True, kv_quant=True)
+    msgs = [ChatMessage("user", "hello how is the weather today")]
+
+    async def chat(m):
+        return (await m.chat(msgs, max_tokens=12)).content
+
+    t = LocalLLM.from_hf_dir(d, device="cpu", lora_path=npz, lora_alpha=8.0,
+                             **kw)
+    j = JLocal.from_hf_dir(d, lora_path=npz, lora_alpha=8.0, **kw)
+    base = LocalLLM.from_hf_dir(d, device="cpu", **kw)
+    assert isinstance(t.params["wq"], dict) == (kind == "int8")
+    got, want = asyncio.run(chat(t)), asyncio.run(chat(j))
+    assert got == want and got
+    assert got != asyncio.run(chat(base))

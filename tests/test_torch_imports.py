@@ -10,7 +10,7 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax"):
     sys.modules[name] = None  # any import of these now raises
 import rag_application_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
@@ -40,7 +40,8 @@ def test_port_imports_without_jax():
     # users, chat_ui, app), mcp (server, file_server, search_server),
     # serve, models.constrain, llm.scheduler, models.speculative,
     # models.bert, the media front ends (models.image, models.jpeg,
-    # models.audio, ingest.flac), utils, config, state, ...
+    # models.audio, ingest.flac), training and LoRA (models.train_data,
+    # models.train, models.lora), utils, config, state, ...
     assert len(mods) >= 96
     assert {f"rag_application_tpu_torch.{m}" for m in (
         "index.checkpoint", "search.batcher", "search.hybrid",
@@ -55,4 +56,5 @@ def test_port_imports_without_jax():
         "mcp.search_server", "serve", "models.constrain",
         "tools.mcp_client", "llm.scheduler", "models.speculative",
         "models.bert", "models.image", "models.jpeg", "models.audio",
-        "ingest.flac")} <= mods
+        "ingest.flac", "models.train_data", "models.train",
+        "models.lora")} <= mods

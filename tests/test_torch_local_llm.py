@@ -154,17 +154,14 @@ def test_generate_ids_cache_geometry(pair, monkeypatch):
 
 
 def test_unported_paths_raise():
-    """Only the LoRA paths (models/lora.py) still raise; speculation and
-    batching are ported (tests/test_torch_speculative.py,
-    tests/test_torch_scheduler.py)."""
+    """Nothing of the solo paths raises any more (LoRA: below and
+    tests/test_torch_lora.py; speculation and batching:
+    tests/test_torch_speculative.py, tests/test_torch_scheduler.py); an
+    adapter name nobody registered is a ValueError, as in the reference."""
     j, t = _pair(TINY)
-    for call in (lambda: t.register_lora("a", {}),
-                 lambda: LocalLLM.from_hf_dir("model_dir",
-                                              lora_path="a.npz")):
-        with pytest.raises(NotImplementedError, match="models/lora.py"):
-            call()
-    with pytest.raises(ValueError):
-        asyncio.run(t.chat(MSGS, adapter="none-registered"))
+    for m in (j, t):
+        with pytest.raises(ValueError):
+            asyncio.run(m.chat(MSGS, adapter="none-registered"))
     # response schemas are ported (tests/test_torch_constrain.py): one
     # that compile_schema refuses answers prompt-only, as the reference
     schema = {"type": "object"}
@@ -172,3 +169,48 @@ def test_unported_paths_raise():
     want = asyncio.run(j.chat(MSGS, response_schema=schema, max_tokens=6))
     assert got.content == want.content and got.usage == want.usage
     assert t._constraint_cache[t._schema_key(schema)] is None
+
+
+@pytest.mark.parametrize("cfg", [TINY, KERNEL], ids=["f32", "kernel"])
+def test_local_llm_multi_lora_chat(cfg):
+    """register_lora + chat(adapter=...), the reference's case on both
+    packages: the adapter changes the output, no adapter serves the base,
+    unknown names raise; texts equal the JAX LocalLLM's on the solo path
+    and through the batcher (per-row adapter ids, one batch), at float32
+    and on the int8 weights + int8 KV + decode-kernel flags."""
+    j, t = _pair(cfg, quant=cfg.kv_quant)
+    key = jax.random.PRNGKey(11)
+    ad = {}
+    for name in ("wq", "wo"):
+        key, k1, k2 = jax.random.split(key, 3)
+        h = cfg.hidden
+        ad[name] = {"a": jax.random.normal(k1, (cfg.num_layers, h, 8)) * 0.5,
+                    "b": jax.random.normal(k2, (cfg.num_layers, 8, h)) * 0.5,
+                    "s": jax.numpy.full((cfg.num_layers, 1, 1), 2.0)}
+    assert j.register_lora("polite", ad) == 1
+    assert t.register_lora("polite", jax.tree.map(np.asarray, ad)) == 1
+    msgs = [ChatMessage("user", "hello world how is the weather")]
+
+    def texts(m, **kw):
+        async def run():
+            return (await m.chat(msgs, max_tokens=8, **kw)).content
+        return asyncio.run(run())
+
+    base, tuned = texts(t), texts(t, adapter="polite")
+    assert base == texts(j) and tuned == texts(j, adapter="polite")
+    assert tuned != base
+    for m in (j, t):
+        with pytest.raises(ValueError):
+            texts(m, adapter="nope")
+    for m in (j, t):
+        m.enable_batching(slots=2, prompt_pad=32, horizon=32, chunk=4)
+
+    async def both(m):
+        return await asyncio.gather(
+            m.chat(msgs, max_tokens=8),
+            m.chat(msgs, max_tokens=8, adapter="polite"))
+
+    rb, rt = asyncio.run(both(t))
+    assert (rb.content, rt.content) == (base, tuned)
+    jb, jt = asyncio.run(both(j))
+    assert (jb.content, jt.content) == (base, tuned)

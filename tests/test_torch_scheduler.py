@@ -10,8 +10,10 @@ schedule is deterministic the JAX batcher runs too and the counters
 (`stats()`, prefix hits, speculative and plain dispatches) must be
 equal. Sampled batchers draw from `torch.Generator`s, not `jax.random`:
 they are held to their seed, to validity and, for the first token, to
-the filtered law by Monte Carlo. The LoRA and TP-sharded cases raise
-`NotImplementedError` until models/lora.py and parallel/* are ported.
+the filtered law by Monte Carlo. Multi-LoRA rows (banks built by the
+port's `lora_banks`, held bit-equal to the reference's) must give the
+tokens of the JAX solo `generate` with their adapter merged. The
+TP-sharded case raises `NotImplementedError` until parallel/* is ported.
 """
 
 import asyncio
@@ -19,15 +21,19 @@ import dataclasses
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from rag_application_tpu.llm.scheduler import ContinuousBatcher as JBatcher
 from rag_application_tpu.models import decoder as jdec
+from rag_application_tpu.models import lora as jlora
+from rag_application_tpu_torch import state
 from rag_application_tpu_torch.llm import scheduler as tsch
 from rag_application_tpu_torch.llm.scheduler import DEAD, ContinuousBatcher
 from rag_application_tpu_torch.models import decoder as tdec
+from rag_application_tpu_torch.models import lora as tlora
 from rag_application_tpu_torch.state import decoder_params_from_jax
 
 CFG = jdec.DecoderConfig(vocab_size=256, hidden=64, num_layers=3, heads=4,
@@ -609,21 +615,114 @@ def test_eos_at_chunk_last_step_zombie_row():
         assert second == want, m
 
 
+def _rand_adapter(seed, r):
+    """The reference test's adapter: wq and wv factors at CFG's widths,
+    float32, with a stored scale 2."""
+    key = jax.random.PRNGKey(seed)
+    out = {}
+    for t, fin, fout in (("wq", 64, 64), ("wv", 64, 32)):
+        key, k1, k2 = jax.random.split(key, 3)
+        out[t] = {"a": jax.random.normal(k1, (3, fin, r)) * 0.3,
+                  "b": jax.random.normal(k2, (3, r, fout)) * 0.3,
+                  "s": jnp.full((3, 1, 1), 2.0, jnp.float32)}
+    return out
+
+
+def _port_banks(trees):
+    """The port's float32 banks of JAX adapter trees (carried as numpy),
+    held bit-equal to the reference's `lora_banks` of the same trees."""
+    want = jlora.lora_banks(trees, dtype=jnp.float32)
+    got = tlora.lora_banks(
+        [state.adapters_from_jax(jax.tree.map(np.asarray, t), "cpu")
+         for t in trees], dtype=torch.float32)
+    for t in want:
+        for k in ("a", "b"):
+            np.testing.assert_array_equal(got[t][k].numpy(),
+                                          np.asarray(want[t][k]))
+    return got
+
+
+@functools.lru_cache(maxsize=None)
+def _merged_solo(prompt, max_new, seed, r):
+    """Reference: a JAX greedy `generate` with the adapter merged into
+    the dense weights (seed 0 = the base), eos/pad stripped."""
+    params = PARAMS[CFG] if not seed else jlora.lora_merge(
+        jlora.lora_wrap_with(PARAMS[CFG], _rand_adapter(seed, r)))
+    ids = np.zeros((1, 16), np.int32)
+    ids[0, :len(prompt)] = prompt
+    out, _ = jdec.generate(params, CFG, ids, np.asarray([len(prompt)],
+                                                        np.int32),
+                           max_new, -1, -7, jax.random.PRNGKey(0), 0.0)
+    return [int(t) for t in np.asarray(out)[0] if int(t) != -7]
+
+
 def test_multi_lora_batcher_matches_merged_solo():
-    """Multi-LoRA serving waits for models/lora.py: stacked adapter banks
-    are refused by name."""
-    with pytest.raises(NotImplementedError, match="models/lora.py"):
-        batcher(slots=3, prompt_pad=16, horizon=32, chunk=4,
-                lora_banks={"wq": {}})
+    """Rows with DIFFERENT adapters decode in one shared batch; each
+    row's greedy output equals the JAX package's solo run of its adapter
+    merged into the dense weights."""
+    banks = _port_banks([_rand_adapter(1, 4), _rand_adapter(2, 8)])
+    rng = np.random.default_rng(3)
+    prompts = _prompts(3, rng)
+    aids, news = [0, 1, 2], [9, 11, 8]
+
+    async def run():
+        b = batcher(slots=3, prompt_pad=16, horizon=32, chunk=4,
+                    lora_banks=banks)
+        return await asyncio.gather(*[
+            b.submit(p, max_new=n, adapter_id=a)
+            for p, n, a in zip(prompts, news, aids)])
+
+    got = asyncio.run(run())
+    for p, n, a, toks in zip(prompts, news, aids, got):
+        want = _merged_solo(tuple(int(t) for t in p), n, a, (0, 4, 8)[a])
+        assert toks == want, (a, toks, want)
+    assert got[1] != _merged_solo(tuple(int(t) for t in prompts[1]), 11, 0, 0)
 
 
 def test_multi_lora_adapter_id_validation():
-    async def run():
-        b = batcher(slots=2, prompt_pad=16, horizon=32, chunk=4)
-        await b.submit([1, 2, 3], max_new=4, adapter_id=1)
+    """An adapter id outside the banks raises ValueError naming it, as
+    in the reference: without banks any id but 0, with two adapters an
+    id above 2 or below 0."""
+    banks = _port_banks([_rand_adapter(1, 4), _rand_adapter(2, 8)])
 
-    with pytest.raises(NotImplementedError, match="adapter_id.*lora"):
-        asyncio.run(run())
+    async def run(aid, **kw):
+        b = batcher(slots=2, prompt_pad=16, horizon=32, chunk=4, **kw)
+        try:
+            await b.submit([1, 2, 3], max_new=4, adapter_id=aid)
+        except ValueError as e:
+            return str(e)
+        return None
+
+    for aid, kw in ((1, {}), (3, {"lora_banks": banks}),
+                    (-1, {"lora_banks": banks})):
+        msg = asyncio.run(run(aid, **kw))
+        assert msg and "adapter_id" in msg, (aid, msg)
+    assert asyncio.run(run(2, lora_banks=banks)) is None
+
+
+def test_adapter_row_never_matches_base_prefix():
+    """A registered prefix's K/V were computed through the base model, so
+    an adapter row whose prompt starts with it takes a full prefill (no
+    prefix hit) and still equals its merged solo run, while a base row
+    with the same prompt hits the prefix."""
+    banks = _port_banks([_rand_adapter(1, 4)])
+    rng = np.random.default_rng(12)
+    header = [int(t) for t in rng.integers(1, CFG.vocab_size, 6)]
+    prompt = header + [int(t) for t in rng.integers(1, CFG.vocab_size, 4)]
+
+    async def run(aid):
+        b = batcher(slots=2, prompt_pad=16, horizon=32, chunk=4,
+                    lora_banks=banks)
+        b.register_prefix(header)
+        return await b.submit(prompt, max_new=7, adapter_id=aid), \
+            b.prefix_hits
+
+    toks, hits = asyncio.run(run(1))
+    assert hits == 0
+    assert toks == _merged_solo(tuple(prompt), 7, 1, 4)
+    toks, hits = asyncio.run(run(0))
+    assert hits == 1
+    assert toks == _merged_solo(tuple(prompt), 7, 0, 0)
 
 
 def test_compact_gathers_both_int8_leaves():

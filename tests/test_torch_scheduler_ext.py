@@ -5,8 +5,8 @@ OpenAI penalties and logit_bias ride per-row planes inside the shared
 decode batch, and greedy tokens equal the JAX solo loop's
 (`decoder.generate` with the same knobs), plain and speculative. The
 constraint bank's LRU eviction and pins are held to the JAX batcher's
-over one sequence of registrations. LoRA rows raise until models/lora.py
-is ported.
+over one sequence of registrations. A LoRA row in an ext batcher gives
+the tokens of the JAX solo `generate` with the reference's banks.
 """
 
 import asyncio
@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from rag_application_tpu.llm.scheduler import ContinuousBatcher as JBatcher
 from rag_application_tpu.models import decoder as jdec
@@ -172,17 +173,53 @@ def test_row_reuse_clears_ext_planes():
 
 
 def test_ext_composes_with_lora_rows():
-    """LoRA rows in an ext batcher wait for models/lora.py."""
-    with pytest.raises(NotImplementedError, match="models/lora.py"):
-        _ext_batcher(lora_banks={"wq": {}})
+    """A constrained request and a LoRA-adapter request share one ext
+    batch; each matches its own JAX solo reference (the constrained one
+    `generate` with the grammar, the adapter one `generate` with the
+    reference's banks)."""
+    from rag_application_tpu.models import lora as jlora
+    from rag_application_tpu_torch import state
+    from rag_application_tpu_torch.models import lora as tlora
+
+    wrapped = jlora.lora_init(jax.random.PRNGKey(7), PARAMS, r=2, alpha=8.0)
+    tree = jax.tree.map(  # nonzero b so the adapter actually acts
+        lambda v: v + 0.05 * jax.random.normal(
+            jax.random.PRNGKey(8), v.shape, jnp.float32).astype(v.dtype),
+        jlora.lora_adapters(wrapped))
+    banks = jlora.lora_banks([tree], alpha=8.0, dtype=jnp.float32)
+    np_tree = {t: {k: np.asarray(v).view(np.uint16) for k, v in ab.items()}
+               for t, ab in tree.items()}  # bf16 factors as their bits
+    tbanks = tlora.lora_banks([state.adapters_from_jax(np_tree, "cpu")],
+                              alpha=8.0, dtype=torch.float32)
+    for t in banks:
+        for k in ("a", "b"):
+            np.testing.assert_array_equal(tbanks[t][k].numpy(),
+                                          np.asarray(banks[t][k]))
+    rng = np.random.default_rng(4)
+    prompts = _prompts(2, rng)
 
     async def run():
-        b = _ext_batcher()
+        b = _ext_batcher(lora_banks=tbanks)
         cid = b.register_constraint(CON)
-        await b.submit([40, 41], max_new=4, constraint_id=cid, adapter_id=1)
+        return await asyncio.gather(
+            b.submit(prompts[0], max_new=120, eos_id=EOS,
+                     constraint_id=cid),
+            b.submit(prompts[1], max_new=8, adapter_id=1),
+        )
 
-    with pytest.raises(NotImplementedError, match="models/lora.py"):
-        asyncio.run(run())
+    con_out, lora_out = asyncio.run(run())
+    assert con_out == _solo(prompts[0], 120, eos_id=EOS, constrained=True)
+    json.loads(ByteTok().decode(con_out))
+    ids = np.zeros((1, 16), np.int32)
+    ids[0, :len(prompts[1])] = prompts[1]
+    out, _ = jdec.generate(PARAMS, CFG, ids,
+                           np.asarray([len(prompts[1])], np.int32), 8, -1,
+                           -7, jax.random.PRNGKey(0), 0.0, 64, 1.0,
+                           {"aid": jnp.asarray([1], jnp.int32),
+                            "banks": banks})
+    want = [int(t) for t in np.asarray(out)[0] if int(t) != -7]
+    assert lora_out == want
+    assert lora_out != _solo(prompts[1], 8)
 
 
 def test_validation_errors():
