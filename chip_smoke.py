@@ -258,6 +258,43 @@
    p50/p90 ms and launches per route, searches/s, generated tokens/s,
    boot and restore seconds and peak memory.
 
+11. `[shard]`, corpus-axis sharding (`parallel/*`), after `[agents]`: a
+   mesh of 4 shards, each on this card (`make_mesh(4, devices=[cuda:0]
+   * 4)`). Slice A's tables (step 3) cut with `shard_corpus` (the dense
+   planes as views) and `build_sharded_sparse`, then
+   `sharded_fused_hybrid` with the main path's funnel as a spec (the
+   cascade, int8, BM25; each shard the plain blocked scan) on 3 batches
+   of 1,024 noisy rows (cut from 8,192 for time) against one
+   `fused_core` call on the whole tables with the same spec: each row's
+   ids equal with scores within 1e-5, or, in at most 5% of the rows,
+   no worse where the shards' wider candidate lists found a true
+   neighbour the one-device call missed (each such score held to the
+   exact dense score of its id); recall@10 >= 0.95 against the exact
+   oracle on 128 queries; exactly 4 BM25 match launches a batch, each
+   held to plain (ms a batch, peak memory). Then `ShardedKGSearch` over
+   [kg]'s store on 64 queries, bf16 (hits equal to
+   `KGStore.search_across_spaces` but at near-ties) and capacity mode
+   (hits equal to the same capacity-mode search on a CPU mesh but at
+   near-ties; its overlap with the bf16 top-10 printed);
+   then `build_sharded_ivf` over [ann]'s corpus at [ann]'s settings,
+   `sharded_ivf_search` on a batch of 256 at probes 32 and 128 a shard
+   (recall@10 >= 0.95 at 32), 64 queries held to the same partitions on
+   a CPU mesh (int8 stage bit for bit, rescored ids but at near-ties);
+   then `sharded_topk_dryrun` and `sharded_kg_dryrun` on the mesh.
+12. `[evals]`, after `[media]`: `evals/real_docs.py` at `Config()`
+   widths over the fixtures (Pokemon.csv only where pandas is
+   installed): `build_real_docs_stack` on the card (the first document's
+   prep, scan and match launches held to plain as it is ingested),
+   `evaluate_real_docs` on all 28 questions (the first question's
+   launches held to plain), the same stack as a CPU copy with the card's
+   weights and scan engine whose per-question flags must equal the
+   card's but at near-ties, then the stack with `train_steps=300` and
+   its gates (chunks, ingest s, recall@5, answer hit rate, the gates'
+   messages); then `evals/multimodal.py`: the first 2 losses of
+   `train_multimodal` against a CPU copy, and `evaluate_multimodal` (300
+   steps) with the nine recalls at 1, 5 and 10 held to the reference
+   test's floors (4x chance t->i and t->a, 2x i->a, at 5).
+
 Prints one `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {...}}`. Exits non-zero on any failure, and
 when CUDA is not available.
@@ -316,6 +353,13 @@ and the media front ends.
 run steps 1-2 and `[ingest]` of step 6, then `[ann]` of step 7 alone,
 or `[kg]` and `[agents]` of step 7, for work on the ANN engine or the
 agent layer.
+
+    python3 chip_smoke.py --evals
+    python3 chip_smoke.py --shard
+
+run steps 1-2 and then step 12 alone, or the tables of step 3,
+`[ingest]` and `[kg]`, then step 11 alone, for work on the evals or on
+corpus-axis sharding.
 """
 
 from __future__ import annotations
@@ -326,6 +370,7 @@ import json
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -513,6 +558,29 @@ FT_STEPS, FT_LR = 2, 1e-4  # full fine-tune, bf16 weights
 # [train-serve]: the trained adapter beside the base in one batch
 TSERVE_CONVS, TSERVE_NEW = 4, 64  # conversations, each asked twice
 TSERVE_DIR = "build/smoke_lora"
+
+# [evals]: evals/real_docs.py over the fixtures at Config() widths, graded
+# on every question untrained and after EVAL_TRAIN_STEPS (bench.py:918's
+# default); then evals/multimodal.py at its defaults (MM_STEPS, recalls at
+# MM_KS). Pokemon.csv needs pandas, which a host may lack: without it the
+# stack takes the other five fixtures.
+EVAL_TRAIN_STEPS, EVAL_K = 300, 5
+# a per-question flag of the card may differ from its CPU copy's only
+# where the two hybrid rankings differ at a near-tie: the card scores the
+# CPU's pick at the first differing rank within EVAL_TIE of its own (dbsf
+# scores lie in [0, 2]; the bf16 encoder rounds apart on the two devices)
+EVAL_TIE = 2e-2
+MM_STEPS, MM_KS, MM_CHECK_STEPS = 300, (1, 5, 10), 2
+# card vs CPU copy, each checked step's loss (f32 tower), relative
+MM_LOSS_RTOL = 1e-4
+# [shard]: corpus-axis sharding (parallel/*) over a mesh of SHARDS shards,
+# each on this card: slice A's tables, SHARD_BATCH queries a batch (cut
+# from BATCH for time: each shard's plain blocked scan sorts whole blocks)
+SHARDS, SHARD_BATCH, SHARD_BATCHES = 4, 1024, 2
+SHARD_ATOL = 1e-5       # scores of equal ids, sharded vs one device
+SHARD_UNEQUAL = 0.05    # the share of rows that may differ from one device's
+SHARD_KG_QUERIES = 64
+SHARD_IVF_CPU = 64      # queries held to a CPU copy of the sharded IVF
 
 
 def log(msg: str) -> None:
@@ -990,30 +1058,39 @@ def check_no_gathered_copy(call):
     return touched
 
 
+class _Recorder:
+    """A kernel wrapper's stand-in that records its calls; the launches
+    the wrapper counts on its module-level name (this object) land on the
+    wrapper's own count."""
+
+    def __init__(self, fn, counts):
+        self.fn, self.counts, self.calls = fn, counts or {}, []
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+    def __call__(self, *args, **kwargs):
+        before = dict(self.counts)
+        out = self.fn(*args, **kwargs)
+        self.calls.append((args, kwargs, out, rose(self.counts, before)))
+        return out
+
+
 @contextlib.contextmanager
 def recording(module, name, counts=None):
     """While the block runs, record ``(args, kwargs, result, took)`` of
     every call of the kernel wrapper ``module.name`` (the wrapper still
-    runs); ``took`` lists the keys of ``counts``, the wrapper's launch
-    counts by kernel, that rose during the call. The wrapper counts its
-    launches on its module-level name, so these launches go to the
-    recorder's own ``launches`` and the wrapper's count is left as it
-    was."""
-    fn = getattr(module, name)
-    calls = []
-
-    def rec(*args, **kwargs):
-        before = dict(counts or {})
-        out = fn(*args, **kwargs)
-        calls.append((args, kwargs, out, rose(counts or {}, before)))
-        return out
-
-    rec.launches = 0
-    setattr(module, name, rec)
-    try:
-        yield calls
-    finally:
-        setattr(module, name, fn)
+    runs and counts its launches as it does outside the block); ``took``
+    lists the keys of ``counts``, the wrapper's launch counts by kernel,
+    that rose during the call."""
+    rec = _Recorder(getattr(module, name), counts)
+    with mock.patch.object(module, name, rec):
+        yield rec.calls
 
 
 def routed(scans):
@@ -4663,7 +4740,7 @@ def run_agents(col, emb, kg, tokens, dev):
 
     # every scan and match launch of the phase (tools, turns one at a
     # time, research, turns run concurrently) is recorded and held against
-    # plain; while recording, the wrappers count on the recorders
+    # plain
     with recording(ft, "scan_sheet") as scans, \
             recording(ob, "bm25_match_rows") as matches:
         reset_scan_counts(ft)
@@ -6256,6 +6333,705 @@ def match_prep_only(dev, card) -> int:
     return 0
 
 
+def cpu_embedder_factory():
+    """A stand-in for `models.embedder.Embedder` that builds the default
+    encoder on the CPU: `init_encoder` draws from a CPU generator, so the
+    weights are the card's; an Embedder given a state keeps its device."""
+    from rag_application_tpu_torch.models import embedder as memb
+    from rag_application_tpu_torch.models.encoder import init_encoder
+
+    real = memb.Embedder
+
+    def factory(state=None, *, cfg=None, **kw):
+        if state is None:
+            state = init_encoder(cfg, device="cpu")
+        return real(state, cfg=cfg, **kw)
+
+    return factory
+
+
+def eval_files():
+    """The fixtures the stack ingests here: all six, or the five that
+    need no pandas where it is missing."""
+    import importlib.util
+
+    from rag_application_tpu_torch.evals.real_docs import FIXTURES
+
+    if importlib.util.find_spec("pandas") is not None:
+        return list(FIXTURES)
+    return [f for f in FIXTURES if not f.endswith(".csv")]
+
+
+@contextlib.contextmanager
+def first_document_held(label):
+    """While the block runs, the prep, scan and match launches of the
+    first `IngestPipeline.ingest_file` call are recorded and held to
+    plain as soon as that call returns (before a later write can change
+    the planes). Yields a dict that then holds the prep launches by
+    (rows, dims) and the scan and match counts."""
+    from rag_application_tpu_torch.index import dense as idense
+    from rag_application_tpu_torch.ingest.pipeline import IngestPipeline
+    from rag_application_tpu_torch.ops import bm25 as ob
+    from rag_application_tpu_torch.ops import fused_topk as ft
+
+    orig = IngestPipeline.ingest_file
+    held = {}
+
+    async def first(self, *args, **kwargs):
+        if held:
+            return await orig(self, *args, **kwargs)
+        with recording(idense, "prepare_vectors_into") as preps, \
+                recording(ft, "scan_sheet", ft.route_launches) as scans, \
+                recording(ob, "bm25_match_rows") as matches:
+            out = await orig(self, *args, **kwargs)
+        held["preps"] = check_preps(f"{label}, {args[0]}", preps)
+        if scans:
+            check_recorded(f"{label}, {args[0]}", routed(scans), matches)
+        elif matches:
+            check_matches(f"{label}, {args[0]}", matches)
+        held["scans"], held["matches"] = len(scans), len(matches)
+        return out
+
+    with mock.patch.object(IngestPipeline, "ingest_file", first):
+        yield held
+
+
+@contextlib.contextmanager
+def eval_log():
+    """The evals' gate messages (logger ``rag_application_tpu_torch.evals``,
+    INFO and up) while the block runs."""
+    import logging
+
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    logger = logging.getLogger("rag_application_tpu_torch.evals")
+    handler, level = Keep(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        yield lines
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def hybrid_texts(stack, query, limit):
+    """(text, score) of a stack's hybrid hits for one question."""
+    qv = stack.embedder.encode([query])[0]
+    return [(str(h.payload.get("text", "")), float(h.score))
+            for h in stack.collection.hybrid_search(qv, query, limit=limit)]
+
+
+def flags_held(card, cpu, res_card, res_cpu):
+    """The card's per-question flags against the CPU copy's: equal, or
+    different only where the two top-EVAL_K hybrid rankings differ at a
+    near-tie (EVAL_TIE). Returns the questions that differ at one."""
+    ties = []
+    for a, b in zip(res_card["per_question"], res_cpu["per_question"]):
+        if (a["retrieved"], a["answered"]) == (b["retrieved"],
+                                               b["answered"]):
+            continue
+        q = a["query"]
+        hc = hybrid_texts(card, q, 2 * EVAL_K)
+        hp = hybrid_texts(cpu, q, 2 * EVAL_K)
+        first = next((i for i in range(EVAL_K)
+                      if i >= len(hc) or i >= len(hp)
+                      or hc[i][0] != hp[i][0]), None)
+        card_texts = [t for t, _ in hc]
+        near = (first is not None and first < len(hc) and first < len(hp)
+                and hp[first][0] in card_texts
+                and abs(hc[first][1] - hc[card_texts.index(
+                    hp[first][0])][1]) <= EVAL_TIE)
+        log(f"  flags differ on {q!r}: card {a['retrieved']}/"
+            f"{a['answered']}, CPU {b['retrieved']}/{b['answered']}; "
+            f"rankings first differ at rank {first}: card {hc[:EVAL_K]}, "
+            f"CPU {hp[:EVAL_K]}")
+        if not near:
+            raise AssertionError(f"[evals] flags differ from the CPU copy "
+                                 f"on {q!r} away from a near-tie")
+        ties.append(q)
+    return ties
+
+
+def eval_summary(label, res, seconds):
+    log(f"  {label}: {res['n_questions']} questions in {seconds:.1f} s, "
+        f"retrieval_recall_at_{res['k']} {res['retrieval_recall_at_k']:.4f}"
+        f", answer_hit_rate {res['answer_hit_rate']:.4f}; missed: "
+        f"{[q['query'][:40] for q in res['per_question'] if not q['retrieved']]}")
+
+
+def run_real_docs(dev):
+    """[evals], real documents: `build_real_docs_stack` on the card over
+    `eval_files()` at Config() widths (the first document's launches
+    held to plain as it is ingested), `evaluate_real_docs` on every
+    question (the first question's launches held to plain), the same
+    through a CPU copy with the card's weights (flags held), then the
+    stack again with EVAL_TRAIN_STEPS of fine-tuning and its gates.
+    Returns (scan and match launches by kernel entry, (int8 scan, bf16
+    scan, bm25) max abs errors, prep launches)."""
+    import asyncio
+
+    import torch
+
+    from rag_application_tpu_torch.config import Config
+    from rag_application_tpu_torch.evals import real_docs as rd
+    from rag_application_tpu_torch.models import embedder as memb
+    from rag_application_tpu_torch.ops import bm25 as ob
+    from rag_application_tpu_torch.ops import fused_topk as ft
+    from rag_application_tpu_torch.ops import quant as oq
+
+    files = eval_files()
+    log(f"  fixtures {files}; {len(rd.QUESTIONS)} questions, k {EVAL_K}")
+    reset_scan_counts(ft)
+    ob.bm25_match_rows.launches = 0
+    oq.prepare_vectors_into.launches = 0
+
+    t0 = time.perf_counter()
+    with first_document_held("[evals] first document") as held:
+        card = asyncio.run(rd.build_real_docs_stack(files=files))
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    failed = {n: r.failed_tasks for n, r in card.ingest_results.items()
+              if r.failed_tasks}
+    log(f"  stack on {card.embedder.device}: {len(card.chunk_texts)} chunks, "
+        f"KG {card.kg.stats()}, ingest {ingest_s:.2f} s (Embedder set-up "
+        f"included); first document's launches held: {held}; failed "
+        f"tasks {failed}")
+    if failed or not card.chunk_texts:
+        raise AssertionError(f"[evals] ingest failed: {failed}")
+
+    with recording(ft, "scan_sheet", ft.route_launches) as scans, \
+            recording(ob, "bm25_match_rows") as matches:
+        asyncio.run(rd.evaluate_real_docs(card, k=EVAL_K,
+                                          questions=rd.QUESTIONS[:1]))
+    errs = check_recorded("[evals] first question", routed(scans), matches)
+    t0 = time.perf_counter()
+    res = asyncio.run(rd.evaluate_real_docs(card, k=EVAL_K))
+    eval_summary("untrained, card", res, time.perf_counter() - t0)
+
+    # the CPU copy: the card's weights, the card's scan engine
+    cfg = Config()
+    cfg.funnel.final_fusion = "dbsf"
+    cfg.funnel.scan_impl = "pallas"
+    t0 = time.perf_counter()
+    with mock.patch.object(memb, "Embedder", cpu_embedder_factory()):
+        cpu = asyncio.run(rd.build_real_docs_stack(files=files, config=cfg))
+    built = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_res = asyncio.run(rd.evaluate_real_docs(cpu, k=EVAL_K))
+    eval_summary(f"untrained, CPU copy (built in {built:.1f} s)", cpu_res,
+                 time.perf_counter() - t0)
+    if sorted(cpu.chunk_texts) != sorted(card.chunk_texts):
+        raise AssertionError("[evals] the CPU copy's chunks differ")
+    ties = flags_held(card, cpu, res, cpu_res)
+    log(f"  per-question flags equal to the CPU copy's but at "
+        f"{len(ties)} near-ties")
+    del cpu
+    launches = {**scan_counts(ft), "bm25_match": ob.bm25_match_rows.launches}
+
+    t0 = time.perf_counter()
+    with eval_log() as gates:
+        trained = asyncio.run(rd.build_real_docs_stack(
+            files=files, train_steps=EVAL_TRAIN_STEPS))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tres = asyncio.run(rd.evaluate_real_docs(trained, k=EVAL_K))
+    log(f"  train_steps {EVAL_TRAIN_STEPS}: stack built in {train_s:.1f} s; "
+        f"gates: {gates or ['none fired: the trained stack shipped']}")
+    eval_summary(f"train_steps {EVAL_TRAIN_STEPS}, card", tres,
+                 time.perf_counter() - t0)
+    launches = {**scan_counts(ft), "bm25_match": ob.bm25_match_rows.launches}
+    preps = oq.prepare_vectors_into.launches
+    log(f"  launches {launches}, prep_vectors {preps}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"[evals] kernel {name} never launched")
+    del card, trained
+    torch.cuda.empty_cache()
+    return launches, errs, preps
+
+
+def run_multimodal_eval(dev):
+    """[evals], multimodal: the first MM_CHECK_STEPS losses of
+    `train_multimodal` on the card against a CPU copy (2-step runs from
+    the same weights on the same batches), then `evaluate_multimodal`
+    at its defaults on the card, held to the reference test's floors."""
+    import torch
+
+    from rag_application_tpu_torch.evals import multimodal as mm
+
+    scenes = mm.all_scenes()
+    order = np.random.default_rng(0).permutation(len(scenes))
+    train = [scenes[i] for i in order[:int(len(scenes) * 0.75)]]
+    card_l = mm.train_multimodal(mm.default_embedder(dev), train,
+                                 steps=MM_CHECK_STEPS)
+    cpu_l = mm.train_multimodal(mm.default_embedder("cpu"), train,
+                                steps=MM_CHECK_STEPS)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+    log(f"  first {MM_CHECK_STEPS} steps: card losses {card_l}, CPU copy "
+        f"{cpu_l}, worst relative error {rel:.3g} (<= {MM_LOSS_RTOL})")
+    if rel > MM_LOSS_RTOL:
+        raise AssertionError(f"[evals] multimodal losses: {card_l} vs "
+                             f"{cpu_l}")
+
+    losses = []
+    real = mm.train_multimodal
+
+    def kept(*args, **kwargs):
+        losses.extend(real(*args, **kwargs))
+        return losses
+
+    t0 = time.perf_counter()
+    with mock.patch.object(mm, "train_multimodal", kept):
+        res = mm.evaluate_multimodal(steps=MM_STEPS, k=MM_KS,
+                                     embedder=mm.default_embedder(dev))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    recalls = {k: round(v, 4) for k, v in res.items() if "recall" in k}
+    log(f"  evaluate_multimodal(steps={MM_STEPS}) in {secs:.1f} s: loss "
+        f"{losses[0]:.3f} -> {losses[-1]:.3f}; {int(res['n_test'])} held-out "
+        f"scenes; recalls {recalls}; chance@5 {res['chance_at_5']:.4f}")
+    c5 = res["chance_at_5"]
+    floors = {"text_to_image_recall_at_5": 4 * c5,
+              "text_to_audio_recall_at_5": 4 * c5,
+              "image_to_audio_recall_at_5": 2 * c5}
+    for key, floor in floors.items():
+        if res[key] < floor:
+            raise AssertionError(f"[evals] {key} {res[key]:.4f} < {floor:.4f}")
+    return res
+
+
+def evals_phase(dev, card):
+    """[evals], logged with its time; returns `run_real_docs`'s."""
+    t0 = time.perf_counter()
+    log(f"[evals] evals/real_docs.py at Config() widths (untrained and "
+        f"train_steps {EVAL_TRAIN_STEPS}), then evals/multimodal.py at its "
+        f"defaults ({card})")
+    out = run_real_docs(dev)
+    log("[evals] multimodal: evaluate_multimodal on the card")
+    run_multimodal_eval(dev)
+    log(f"[evals] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def evals_only(dev, card) -> int:
+    """`--evals`: [evals] alone."""
+    evals_phase(dev, card)
+    log(card)
+    return 0
+
+
+def shard_spec(dense, sparse, rps):
+    """The main path's funnel as a spec (`FusedSpec.from_funnel`) with the
+    cascade and the sparse branch, as `sharded_fused_hybrid` runs it on
+    each shard (the plain scan, dense final ranking); the same spec runs
+    the one-device reference."""
+    from rag_application_tpu_torch.config import FunnelConfig
+    from rag_application_tpu_torch.search.fused import FusedSpec
+
+    funnel = FunnelConfig(matryoshka_limits=(512, 256), dense_limit=24,
+                          quantized_limit=32, sparse_limit=12,
+                          final_limit=K)
+    spec = FusedSpec.from_funnel(
+        funnel, dense.cfg.matryoshka_dims, k=K,
+        block_size=dense.cfg.block_size, use_sparse=True,
+        use_matryoshka=True, has_filter=False,
+        sparse_pool=sparse.cfg.candidate_pool,
+        recall_target=dense.cfg.approx_recall_target)
+    one = spec._replace(block_size=min(spec.block_size, rps),
+                        scan_impl="xla", scan_prefix_dim=0,
+                        final_fusion="dense")
+    return spec, one
+
+
+def sharded_vs_one(s_vals, s_ids, o_vals, o_ids, vecs, q):
+    """The sharded funnel's rows against the one-device funnel's: equal
+    ids with scores within SHARD_ATOL, or a row list at least as good —
+    each shard keeps its own limits, so the sharded candidate lists are
+    wider, and where the one-device funnel missed a true neighbour the
+    sharded one can find it: then every id the one-device list has and
+    the sharded one lacks must score no more than the sharded list's
+    last, and no score may fall. In such a row the ids must be distinct
+    and each score the exact dense score of its id (the unit query's dot
+    with its bf16 row, here in f64) within SHARD_ATOL; at most
+    SHARD_UNEQUAL of the rows may differ. Returns (rows equal, rows
+    better)."""
+    import torch
+
+    sv, si = s_vals.cpu().numpy(), s_ids.cpu().numpy()
+    ov, oi = o_vals.cpu().numpy(), o_ids.cpu().numpy()
+    diff = [r for r in range(si.shape[0]) if not (si[r] == oi[r]).all()]
+    same = np.setdiff1d(np.arange(si.shape[0]), diff)
+    if np.abs(sv[same] - ov[same]).max(initial=0) > SHARD_ATOL:
+        raise AssertionError(f"[shard] rows with equal ids, scores differ "
+                             f"by {np.abs(sv[same] - ov[same]).max()}")
+    if len(diff) > SHARD_UNEQUAL * si.shape[0]:
+        raise AssertionError(f"[shard] {len(diff)} of {si.shape[0]} rows "
+                             f"differ from one device's (cap "
+                             f"{SHARD_UNEQUAL:.0%})")
+    if not diff:
+        return si.shape[0], 0
+    rows = torch.tensor(diff, device=q.device)
+    ids = s_ids[rows].long()
+    if (ids < 0).any() or (ids >= vecs.shape[0]).any():
+        raise AssertionError(f"[shard] invalid ids in rows {diff}")
+    qd = q[rows].double()
+    qd = qd / torch.linalg.vector_norm(qd, dim=-1, keepdim=True)
+    true = torch.einsum("qd,qkd->qk", qd, vecs[ids].double()).cpu().numpy()
+    for n, r in enumerate(diff):
+        lost = [j for j in range(oi.shape[1]) if oi[r, j] not in si[r]]
+        if len(set(si[r])) != si.shape[1] \
+                or np.abs(sv[r] - true[n]).max() > SHARD_ATOL \
+                or any(ov[r, j] > sv[r, -1] + SHARD_ATOL for j in lost) \
+                or (sv[r] < ov[r] - SHARD_ATOL).any():
+            raise AssertionError(f"[shard] row {r}: sharded {si[r]} "
+                                 f"{sv[r]} (exact {true[n]}) against one "
+                                 f"device's {oi[r]} {ov[r]}")
+    return si.shape[0] - len(diff), len(diff)
+
+
+def run_shard_funnel(mesh, dense, sparse, tokens, rng):
+    """[shard], the funnel: slice A's tables cut over the mesh, then
+    `sharded_fused_hybrid` with the main path's spec on SHARD_BATCHES + 1
+    batches of SHARD_BATCH noisy rows, against one `fused_core` call on
+    the whole tables with the same spec. Returns the bm25 match
+    launches (counted around the sharded calls only) and their max abs
+    error."""
+    import torch
+
+    from rag_application_tpu_torch.ops import bm25 as ob
+    from rag_application_tpu_torch.parallel import mesh as pm
+    from rag_application_tpu_torch.parallel import search as ps
+    from rag_application_tpu_torch.parallel.sparse import \
+        build_sharded_sparse
+    from rag_application_tpu_torch.search.fused import fused_core
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    vecs = ps.shard_corpus(mesh, dense.vecs[:N])
+    int8 = ps.shard_corpus(mesh, dense.int8[:N])
+    inv = pm.shard_rows(mesh, dense.inv_norms[:N])
+    live = pm.shard_rows(mesh, dense.live[:N])
+    sh = build_sharded_sparse(sparse, SHARDS)
+    t_host = time.perf_counter() - t0
+    post = pm.shard_stacked(mesh, sh["post_packed"])
+    docp = pm.shard_stacked(mesh, sh["doc_packed"])
+    torch.cuda.synchronize()
+    rps = sh["rows_per_shard"]
+    log(f"  cut over {mesh}: {rps:,} rows a shard (the dense planes as "
+        f"views), build_sharded_sparse {t_host:.1f} s on the host (V_pad "
+        f"{sh['v_pad']}, P {sh['p']}, L {sh['l']}); "
+        f"{(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB of new "
+        f"sparse tables")
+    spec, one = shard_spec(dense, sparse, rps)
+    dv = sparse.device_arrays()
+
+    torch.cuda.reset_peak_memory_stats()
+    times, equal, better, err, launched = [], 0, 0, 0.0, 0
+    for b in range(SHARD_BATCHES + 1):
+        q, texts = make_queries(dense, tokens, rng, 300 + b)
+        q, texts = q[:SHARD_BATCH], texts[:SHARD_BATCH]
+        sq = sparse.encode_queries(texts)
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ob.bm25_match_rows.launches = 0
+        with recording(ob, "bm25_match_rows") as matches:
+            ev0.record()
+            s_vals, s_ids = ps.sharded_fused_hybrid(
+                mesh, vecs, int8, inv, live, post, docp, q, *sq, K,
+                spec=spec, valid_n=N)
+            ev1.record()
+            torch.cuda.synchronize()
+        n_match = ob.bm25_match_rows.launches
+        launched += n_match
+        if n_match != SHARDS or len(matches) != SHARDS:
+            raise AssertionError(f"[shard] {n_match} bm25 match launches "
+                                 f"in a batch, {len(matches)} recorded")
+        err = max(err, check_matches(f"[shard] batch {b}", matches))
+        times.append(ev0.elapsed_time(ev1))
+        o_vals, o_ids = fused_core(
+            dense.vecs, dense.int8, dense.inv_norms, dense.live, N, q, None,
+            (dv["post_docs"], dv["post_weights"], dv["doc_packed"]), sq, one)
+        e, bt = sharded_vs_one(s_vals, s_ids, o_vals, o_ids, dense.vecs, q)
+        equal, better = equal + e, better + bt
+        exact = exact_top_ids(dense, q[:N_EVAL], K)
+        rec = [float(np.mean([np.isin(exact[i], ids[i]).mean()
+                              for i in range(N_EVAL)]))
+               for ids in (s_ids[:N_EVAL].cpu().numpy(),
+                           o_ids[:N_EVAL].cpu().numpy())]
+        log(f"  batch {b}: {times[-1]:.2f} ms (CUDA events, {SHARDS} shards "
+            f"issued in turn); rows equal to one fused_core call {e} of "
+            f"{SHARD_BATCH}, at least as good (their scores exact) {bt}; "
+            f"recall@10 vs exact on {N_EVAL}: sharded {rec[0]:.4f}, one device {rec[1]:.4f}")
+        if rec[0] < 0.95:
+            raise AssertionError(f"[shard] recall@10 {rec[0]:.4f} < 0.95")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    ms = times[1:]
+    log(f"  sharded_fused_hybrid: {np.mean(ms):.2f} ms a batch of "
+        f"{SHARD_BATCH} (batches after the first: {[round(t, 2) for t in ms]})"
+        f"; rows equal {equal}, at least as good {better}; bm25 match "
+        f"launches {SHARDS} a batch, each bit-equal to plain; peak device "
+        f"memory above the tables {peak:.2f} GiB")
+    one_ms = cuda_ms(lambda: fused_core(
+        dense.vecs, dense.int8, dense.inv_norms, dense.live, N, q, None,
+        (dv["post_docs"], dv["post_weights"], dv["doc_packed"]), sq, one),
+        reps=1, warmup=0)
+    log(f"  one fused_core call on the whole tables, same spec: "
+        f"{one_ms:.2f} ms a batch")
+    del vecs, int8, inv, live, post, docp, sh
+    return launched, err
+
+
+def shard_hits_equal(got, want, label):
+    """Sharded KG hits against the one-device store's: the same (space,
+    row) list with scores within SHARD_ATOL, but where two hits' scores
+    lie within SHARD_ATOL of each other (a near-tie may swap them)."""
+    ka = [(h["space"], h["row"]) for h in got]
+    kb = [(h["space"], h["row"]) for h in want]
+    sa = np.array([h["score"] for h in got])
+    sb = np.array([h["score"] for h in want])
+    if len(ka) != len(kb) or np.abs(sa - sb).max(initial=0) > SHARD_ATOL:
+        raise AssertionError(f"{label}: {got} vs {want}")
+    for i in range(len(ka)):
+        if ka[i] != kb[i] and not any(
+                kb[j] == ka[i] and abs(sb[j] - sb[i]) <= SHARD_ATOL
+                for j in range(len(kb))):
+            raise AssertionError(f"{label}: hit {i} {ka[i]} vs {kb[i]}")
+    return ka != kb
+
+
+def run_shard_kg(mesh, kg, dev):
+    """[shard], the KG: `ShardedKGSearch` over [kg]'s store on
+    SHARD_KG_QUERIES queries (entity rows plus noise): bf16 against
+    `KGStore.search_across_spaces`, capacity mode against the same
+    capacity-mode search on a CPU mesh (its overlap with the bf16 top-K
+    is printed as a quality figure)."""
+    import torch
+
+    from rag_application_tpu_torch.kg.store import Space
+    from rag_application_tpu_torch.parallel.kg import ShardedKGSearch
+    from rag_application_tpu_torch.parallel.mesh import make_mesh
+
+    ents = kg.spaces[Space.ENTITY].index
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rows = torch.randint(0, ents.size, (SHARD_KG_QUERIES,), generator=gen,
+                         device=dev)
+    q = (ents.vecs[rows].float() + 0.02 * torch.randn(
+        (SHARD_KG_QUERIES, ents.cfg.dim), generator=gen,
+        device=dev)).cpu().numpy()
+    cpu_mesh = make_mesh(SHARDS, devices=["cpu"] * SHARDS)
+    for capacity in (False, True):
+        t0 = time.perf_counter()
+        sharded = ShardedKGSearch(kg, mesh, capacity=capacity)
+        torch.cuda.synchronize()
+        snap = time.perf_counter() - t0
+        sizes = {s.value: (t["size"], t["rps"])
+                 for s, t in sharded.placed["spaces"].items()}
+        ref = ShardedKGSearch(kg, cpu_mesh, capacity=True) if capacity \
+            else kg
+        ties, overlap, t_sh, t_ref = 0, [], 0.0, 0.0
+        for i in range(SHARD_KG_QUERIES):
+            t0 = time.perf_counter()
+            got = sharded.search_across_spaces(q[i], k=K)
+            t_sh += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = ref.search_across_spaces(q[i], k=K)
+            t_ref += time.perf_counter() - t0
+            ties += shard_hits_equal(got, want, f"[shard] kg query {i} "
+                                     f"(capacity {capacity})")
+            if capacity:
+                a = {(h["space"], h["row"]) for h in got}
+                b = {(h["space"], h["row"]) for h in
+                     kg.search_across_spaces(q[i], k=K)}
+                overlap.append(len(a & b) / max(len(b), 1))
+        mode = "capacity (int8)" if capacity else "bf16"
+        log(f"  ShardedKGSearch {mode}: snapshot {snap:.2f} s, spaces "
+            f"(size, rows a shard) {sizes}; search_across_spaces "
+            f"{t_sh / SHARD_KG_QUERIES * 1e3:.2f} ms a query (host clock) "
+            f"against {t_ref / SHARD_KG_QUERIES * 1e3:.2f} ms for "
+            + (f"the same on a CPU mesh; hits equal to it, {ties} queries "
+               f"with a near-tie swap; overlap with the bf16 top-{K} "
+               f"{np.mean(overlap):.4f} (min {min(overlap):.2f})"
+               if capacity else
+               f"one device; hits equal, {ties} queries with a near-tie "
+               f"swap"))
+        del sharded, ref
+
+
+def run_shard_ivf(mesh, dev):
+    """[shard], IVF: [ann]'s corpus cut into SHARDS partitions at [ann]'s
+    settings, `sharded_ivf_search` on a batch of ANN_BATCH at probes 32
+    and 128 (recall@10 against the exact top-10), and SHARD_IVF_CPU
+    queries held to the same partitions on a CPU mesh. Returns the
+    corpus's prep launches."""
+    import torch
+
+    from rag_application_tpu_torch.parallel import ivf as pivf
+    from rag_application_tpu_torch.parallel import mesh as pm
+
+    dense, preps = ann_corpus(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    stacked = pivf.build_sharded_ivf(dense, SHARDS, n_clusters=ANN_CLUSTERS,
+                                     bucket_rows=ANN_BUCKET, iters=ANN_ITERS)
+    placed = pivf.place_sharded_ivf(mesh, stacked)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rid = stacked["bucket_rowids"]
+    live = np.sort(rid[rid >= 0])
+    if not np.array_equal(live, np.arange(dense.size)):
+        raise AssertionError("[shard] the shards' buckets do not cover every "
+                             "row once")
+    log(f"  build_sharded_ivf over {dense.size:,} x {DIM} ({SHARDS} shards, "
+        f"n_clusters {ANN_CLUSTERS}, bucket_rows {ANN_BUCKET}, iters "
+        f"{ANN_ITERS}) and place: {build_s:.2f} s; buckets a shard "
+        f"{[int(x) for x in stacked['n_buckets']]}; "
+        f"{(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB placed")
+    rescore = pm.shard_rows(mesh, dense.vecs[:dense.size])
+    rng = np.random.default_rng(ANN_SEED)
+    rows = torch.from_numpy(rng.choice(dense.size, ANN_BATCH,
+                                       replace=False)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(ANN_SEED + 1)
+    q = dense.vecs[rows].float() + 0.05 * torch.randn(
+        (ANN_BATCH, DIM), generator=gen, device=dev)
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    exact = exact_top_ids(dense, q[:N_EVAL], K)
+    torch.cuda.reset_peak_memory_stats()
+    for probes in (32, 128):
+        _, ids = pivf.sharded_ivf_search(mesh, placed, q, K, probes=probes,
+                                         rescore_vecs=rescore,
+                                         rescore_limit=ANN_RESCORE)
+        ids = ids.cpu().numpy()
+        recall = float(np.mean([np.isin(exact[i], ids[i]).mean()
+                                for i in range(N_EVAL)]))
+        ms = cuda_ms(lambda: pivf.sharded_ivf_search(
+            mesh, placed, q, K, probes=probes, rescore_vecs=rescore,
+            rescore_limit=ANN_RESCORE), reps=3)
+        log(f"  probes {probes} a shard: {ms:.3f} ms a batch of {ANN_BATCH} "
+            f"(CUDA events, warm); recall@10 vs exact on {N_EVAL} "
+            f"{recall:.4f}")
+        if probes == 32 and recall < 0.95:
+            raise AssertionError(f"[shard] ivf recall@10 {recall:.4f} < 0.95")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    log(f"  peak device memory above the corpus during the searches "
+        f"{peak:.2f} GiB")
+
+    # the same partitions on a CPU mesh
+    t0 = time.perf_counter()
+    cpu_mesh = pm.make_mesh(SHARDS, devices=["cpu"] * SHARDS)
+    cpu_placed = pivf.place_sharded_ivf(cpu_mesh, stacked)
+    cpu_rescore = [t.cpu() for t in rescore]
+    qs = q[:SHARD_IVF_CPU]
+    for probes, rs in ((32, False), (128, False), (32, True), (128, True)):
+        kw = dict(rescore_vecs=rescore, rescore_limit=ANN_RESCORE) \
+            if rs else {}
+        dv_, di = pivf.sharded_ivf_search(mesh, placed, qs, K,
+                                          probes=probes, **kw)
+        if rs:
+            kw["rescore_vecs"] = cpu_rescore
+        cv, ci = pivf.sharded_ivf_search(cpu_mesh, cpu_placed, qs.cpu(), K,
+                                         probes=probes, **kw)
+        if not rs:
+            if not (bits_equal(di, ci) and bits_equal(dv_, cv)):
+                raise AssertionError(f"[shard] ivf probes {probes}: the "
+                                     f"card's int8 stage != the CPU's")
+            continue
+        di, dv_ = di.cpu().numpy(), dv_.cpu().numpy()
+        ci, cv = ci.numpy(), cv.numpy()
+        for r in range(SHARD_IVF_CPU):
+            if not rescored_agree(di[r], dv_[r], ci[r], cv[r], 1e-6):
+                raise AssertionError(f"[shard] ivf probes {probes}, query "
+                                     f"{r}, rescored: the card != the CPU")
+    log(f"  {SHARD_IVF_CPU} queries at probes 32 and 128: int8-stage ids and "
+        f"scores bit-equal to the same partitions on a CPU mesh, rescored "
+        f"ids equal but at near-ties (1e-6) ({time.perf_counter() - t0:.1f} "
+        f"s)")
+    del dense, placed, cpu_placed, cpu_rescore, rescore
+    torch.cuda.empty_cache()
+    return preps
+
+
+def run_shard(dense, sparse, tokens, kg, dev):
+    """[shard]: corpus-axis sharding on a mesh of SHARDS shards on this
+    card — the funnel, the KG and IVF — then the two dry runs. Returns
+    (the sharded funnel's bm25 match launches, their max abs error, the
+    prep launches of the corpus IVF is cut from); the one-device
+    reference and the dry runs launch outside these counts."""
+    import torch
+
+    from rag_application_tpu_torch.ops import bm25 as ob
+    from rag_application_tpu_torch.ops import quant as oq
+    from rag_application_tpu_torch.parallel.kg import sharded_kg_dryrun
+    from rag_application_tpu_torch.parallel.mesh import make_mesh
+    from rag_application_tpu_torch.parallel.search import sharded_topk_dryrun
+
+    mesh = make_mesh(SHARDS, devices=[dev] * SHARDS)
+    t0 = time.perf_counter()
+    matches, err = run_shard_funnel(mesh, dense, sparse, tokens,
+                                    np.random.default_rng(29))
+    log(f"  funnel {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_shard_kg(mesh, kg, dev)
+    log(f"  kg {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    preps = run_shard_ivf(mesh, dev)
+    log(f"  ivf {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ob.bm25_match_rows.launches = 0
+    oq.prepare_vectors_into.launches = 0
+    sharded_topk_dryrun(mesh)
+    sharded_kg_dryrun(mesh)
+    torch.cuda.synchronize()
+    log(f"  sharded_topk_dryrun and sharded_kg_dryrun on {mesh}: passed in "
+        f"{time.perf_counter() - t0:.1f} s (bm25_match "
+        f"{ob.bm25_match_rows.launches}, prep_vectors "
+        f"{oq.prepare_vectors_into.launches} launches, not counted)")
+    log(f"  launches: bm25_match {matches} (the sharded batches), "
+        f"prep_vectors {preps} (the IVF corpus's inserts)")
+    return matches, err, preps
+
+
+def shard_phase(dense, sparse, tokens, kg, dev, card):
+    """[shard], logged with its time; returns `run_shard`'s."""
+    t0 = time.perf_counter()
+    log(f"[shard] parallel/*: {SHARDS} shards of slice A's tables, [kg]'s "
+        f"store and [ann]'s corpus on one card, batches of {SHARD_BATCH} "
+        f"({card})")
+    out = run_shard(dense, sparse, tokens, kg, dev)
+    log(f"[shard] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def shard_only(dev, card) -> int:
+    """`--shard`: the main path's tables, [ingest] and [kg], then [shard]
+    alone."""
+    import torch
+
+    dense, cap, sparse, tokens, rng, t_dense, t_sparse = build_tables(dev)
+    del cap
+    log(f"[tables] dense {N}x{DIM} built in {t_dense:.1f} s, sparse {N} "
+        f"docs in {t_sparse:.1f} s")
+    col, emb, _, ing_texts, _, _ = run_ingest(dev)
+    t0 = time.perf_counter()
+    log(f"[kg] KGStore at the API's width ({card})")
+    kg, *_ = run_kg(col, emb, ing_texts, dev)
+    log(f"[kg] {time.perf_counter() - t0:.1f} s")
+    del col
+    torch.cuda.empty_cache()
+    shard_phase(dense, sparse, tokens, kg, dev, card)
+    log(card)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -6304,6 +7080,10 @@ def main() -> int:
         return media_only(dev, card)
     if sys.argv[1:] == ["--train"]:
         return train_only(dev, card)
+    if sys.argv[1:] == ["--evals"]:
+        return evals_only(dev, card)
+    if sys.argv[1:] == ["--shard"]:
+        return shard_only(dev, card)
 
     from rag_application_tpu_torch.ops import quant as oq
 
@@ -6349,7 +7129,7 @@ def main() -> int:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the path")
-    del dense, sparse, tokens, q, texts, bm25_args
+    del q, texts, bm25_args  # the tables stay for [shard]
     torch.cuda.empty_cache()
 
     log("[prep-check] prepare_vectors kernel vs plain on the card")
@@ -6384,6 +7164,10 @@ def main() -> int:
     ann_preps = ann_phase(col, emb, ing_tokens, dev, card)
     agent_errs, agent_launches, agent_preps = agents_phase(
         col, emb, kg, ing_tokens, dev, card)
+    shard_matches, shard_err, shard_preps = shard_phase(
+        dense, sparse, tokens, kg, dev, card)
+    del dense, sparse, tokens
+    torch.cuda.empty_cache()
     scan_err = max(scan_err, errs[0], pipe_errs[0], agent_errs[0])
     scan_bf_err = max(scan_bf_err, errs[1], pipe_errs[1], agent_errs[1])
     bm25_err = max(bm25_err, errs[2], pipe_errs[2], agent_errs[2])
@@ -6394,6 +7178,11 @@ def main() -> int:
     scan_err = max(scan_err, media_errs[0])
     scan_bf_err = max(scan_bf_err, media_errs[1])
     bm25_err = max(bm25_err, media_errs[2])
+    eval_launches, eval_errs, eval_preps = evals_phase(dev, card)
+    scan_err = max(scan_err, eval_errs[0])
+    scan_bf_err = max(scan_bf_err, eval_errs[1])
+    bm25_err = max(bm25_err, eval_errs[2], shard_err)
+    torch.cuda.empty_cache()
 
     log("[gen-check] decode_attn kernel vs plain on the card")
     attn_err, attn_args, batch_args = check_decode_attn(dev)
@@ -6433,18 +7222,21 @@ def main() -> int:
         entry("fused_scan", "rag_application_tpu_torch/csrc/fused_scan.cu",
               "rag_application_tpu/ops/fused_topk.py:61",
               launches["fused_scan"] + agent_launches["fused_scan"]
-              + serve_launches["fused_scan"] + media_launches["fused_scan"],
+              + serve_launches["fused_scan"] + media_launches["fused_scan"]
+              + eval_launches["fused_scan"],
               scan_err, scan_t),
         entry("fused_scan_bf16",
               "rag_application_tpu_torch/csrc/fused_scan_bf16.cu",
               "rag_application_tpu/ops/fused_topk.py:61",
               launches["fused_scan_bf16"] + agent_launches["fused_scan_bf16"]
               + serve_launches["fused_scan_bf16"]
-              + media_launches["fused_scan_bf16"], scan_bf_err, scan_bf_t),
+              + media_launches["fused_scan_bf16"]
+              + eval_launches["fused_scan_bf16"], scan_bf_err, scan_bf_t),
         entry("bm25_match", "rag_application_tpu_torch/csrc/bm25_match.cu",
               "rag_application_tpu/ops/bm25.py:45",
               launches["bm25_match"] + agent_launches["bm25_match"]
-              + serve_launches["bm25_match"] + media_launches["bm25_match"],
+              + serve_launches["bm25_match"] + media_launches["bm25_match"]
+              + eval_launches["bm25_match"] + shard_matches,
               bm25_err, bm25_t),
         entry("decode_attn", "rag_application_tpu_torch/csrc/decode_attn.cu",
               "rag_application_tpu/ops/decode_attn.py:86",
@@ -6455,7 +7247,8 @@ def main() -> int:
         entry("prep_vectors", "rag_application_tpu_torch/csrc/prep_vectors.cu",
               "rag_application_tpu/ops/quant.py:66",
               prep_launches + pipe_launches + ann_preps + agent_preps
-              + serve_launches["prep_vectors"] + media_preps,
+              + serve_launches["prep_vectors"] + media_preps + eval_preps
+              + shard_preps,
               max(prep_err, prep_err_kg),
               prep_t),
     ]}), flush=True)

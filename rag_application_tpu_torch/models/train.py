@@ -36,7 +36,9 @@ Divergence: `save_train_state` / `load_train_state` write one
 ``torch.save`` file (params, the optimizer's ``state_dict`` and the
 step) where the reference writes an orbax checkpoint directory; the two
 formats do not cross. `shard_train_setup` / `shard_lm_train_setup` need
-the device mesh of `parallel/mesh.py`, which is not ported yet.
+parameter sharding over the mesh's model axis (the DP x TP step;
+`parallel/mesh.py::param_shardings` is its rule), which is not ported
+yet.
 
 No JAX function of this module reaches a Pallas kernel (encoder
 training is XLA ops, and the LM forward runs with T > 1, off the
@@ -244,10 +246,10 @@ def make_lm_train_step(cfg, optimizer, *, remat: bool = True) -> Callable:
 
 def shard_lm_train_setup(mesh, params, cfg, optimizer, *,
                          remat: bool = True):
-    """Needs `parallel/mesh.py` (not ported yet)."""
+    """Needs parameter sharding (the DP x TP step), not ported yet."""
     raise NotImplementedError(
-        "shard_lm_train_setup needs the device mesh of parallel/mesh.py, "
-        "which is not ported yet")
+        "shard_lm_train_setup needs parameter sharding over the mesh's "
+        "model axis (the DP x TP step), which is not ported yet")
 
 
 def save_train_state(state: TrainState, path: str) -> None:
@@ -275,7 +277,7 @@ def load_train_state(path: str, optimizer: AdamW, template: TrainState,
 
 def shard_train_setup(mesh, enc, optimizer, *, temperature: float = 0.05,
                       matryoshka_dims: Tuple[int, ...] = ()):
-    """Needs `parallel/mesh.py` (not ported yet)."""
+    """Needs parameter sharding (the DP x TP step), not ported yet."""
     raise NotImplementedError(
-        "shard_train_setup needs the device mesh of parallel/mesh.py, "
-        "which is not ported yet")
+        "shard_train_setup needs parameter sharding over the mesh's "
+        "model axis (the DP x TP step), which is not ported yet")

@@ -41,8 +41,11 @@ def test_port_imports_without_jax():
     # serve, models.constrain, llm.scheduler, models.speculative,
     # models.bert, the media front ends (models.image, models.jpeg,
     # models.audio, ingest.flac), training and LoRA (models.train_data,
-    # models.train, models.lora), utils, config, state, ...
-    assert len(mods) >= 96
+    # models.train, models.lora), the evals (evals.real_docs,
+    # evals.multimodal) and corpus-axis sharding (parallel.mesh,
+    # parallel.sparse, parallel.search, parallel.kg, parallel.ivf), utils,
+    # config, state, ...
+    assert len(mods) >= 105
     assert {f"rag_application_tpu_torch.{m}" for m in (
         "index.checkpoint", "search.batcher", "search.hybrid",
         "search.orchestration", "ops.graph_hop", "kg.store",
@@ -57,4 +60,6 @@ def test_port_imports_without_jax():
         "tools.mcp_client", "llm.scheduler", "models.speculative",
         "models.bert", "models.image", "models.jpeg", "models.audio",
         "ingest.flac", "models.train_data", "models.train",
-        "models.lora")} <= mods
+        "models.lora", "evals", "evals.real_docs", "evals.multimodal",
+        "parallel", "parallel.mesh", "parallel.sparse", "parallel.search",
+        "parallel.kg", "parallel.ivf")} <= mods
