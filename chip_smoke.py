@@ -95,7 +95,7 @@
    8,000-char chunks, 10 workers, 5 retries; an `ObjectStore` under
    build/; the KG hook, with an extractor stub that draws a page of
    `[kg]`'s shape from `[kg]`'s vocabulary, seeded by the text) into that
-   Collection and KGStore: the five non-CSV real fixtures, 32 generated
+   Collection and KGStore: the five non-CSV real fixtures, 16 generated
    text documents of 16 chunks of `[ingest]`'s zipf words, a PDF and a
    docx built here, and one `ingest_url` through a stub fetcher
    (documents/s and chunks/s by kind, encode / store / KG upsert ms a
@@ -199,7 +199,7 @@
    `spec_k=4` batcher (tokens a step; all 16 teacher-forced); 4 chats
    with [serve]'s finite schema beside 4 plain ones in a
    `sampling_ext=True` batcher (schema-valid, constraint id 1 from the
-   bank, no solo call); 4 solo `generate_ids` one at a time (serialized
+   bank, no solo call); 2 solo `generate_ids` one at a time (serialized
    tokens/s); one `generate_ids(speculative=True)` at B 1, prompt 512 +
    128 new, beside plain `generate_ids` (teacher-forced).
    Then `[train]`, training and LoRA (models/train.py, models/lora.py):
@@ -272,7 +272,7 @@
    exact dense score of its id); recall@10 >= 0.95 against the exact
    oracle on 128 queries; exactly 4 BM25 match launches a batch, each
    held to plain (ms a batch, peak memory). Then `ShardedKGSearch` over
-   [kg]'s store on 64 queries, bf16 (hits equal to
+   [kg]'s store on 16 queries, bf16 (hits equal to
    `KGStore.search_across_spaces` but at near-ties) and capacity mode
    (hits equal to the same capacity-mode search on a CPU mesh but at
    near-ties; its overlap with the bf16 top-10 printed);
@@ -294,6 +294,35 @@
    `train_multimodal` against a CPU copy, and `evaluate_multimodal` (300
    steps) with the nine recalls at 1, 5 and 10 held to the reference
    test's floors (4x chance t->i and t->a, 2x i->a, at 5).
+13. `[tp]`, tensor parallelism over the mesh's model axis
+   (`parallel/tp.py::shard_params`), after `[serve]`, on [gen-main]'s
+   weights and flags; the mesh is `make_mesh(4, model=2, devices=[cuda:0]
+   * 4)`, the data 2 x model 2 grid `dryrun_multichip(4)` builds
+   (cuda:0..3 where the host has four cards). `[tp-gen]` `generate` at
+   [gen-main]'s batch and prompt, 32 new tokens, over the tree sharded
+   at model=2 and at model=4 (a 1 x 4 mesh) beside one device (tokens/s,
+   peak memory, prefill logits of 8 rows within 0.25 of one device's):
+   tokens equal to one device's, or, where a row first differs, both
+   trees' teacher-forced logits at that step within 0.25 and the TP
+   token within 0.25 of the top (a bf16 near-tie); 8 rows fed one
+   device's tokens through `decode_step` on both trees, every step's
+   logits within 0.25; decode_attn launches 22 a step, the first 88
+   held to plain as they run. `[tp-batch]` `LocalLLM.enable_batching` at
+   [batch]'s setting over the model=2 tree, [batch]'s 16 chats and
+   prefix, 64 new tokens each: tokens held to the first 64 of [batch]'s
+   one-device tokens the same way, and
+   every token of 4 requests within 0.25 of one device's top logit in
+   its own context; launches 22 x the steps with the first 88 held to
+   plain; then the chats through a `spec_k=2` batcher for 32 new tokens
+   each, held the same way. `[tp-train]` `shard_lm_train_setup` at
+   [train]'s full fine-tune setting (B 8 x T 256, bf16, remat),
+   `shard_train_setup` at [train-enc]'s and the sharded LoRA step at
+   [train-lora]'s, 2 steps each beside the one-device step, each step
+   from the same params: its loss (1e-3 relative) and gradient (5e-2
+   relative L2), the data replicas bit-equal (step ms, peak memory);
+   two planted faults in the LM step (the replicas' gradients unsummed,
+   half the batch) must break those limits. Then `dryrun_multichip(4)`
+   on the mesh's devices.
 
 Prints one `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {...}}`. Exits non-zero on any failure, and
@@ -360,6 +389,12 @@ agent layer.
 run steps 1-2 and then step 12 alone, or the tables of step 3,
 `[ingest]` and `[kg]`, then step 11 alone, for work on the evals or on
 corpus-axis sharding.
+
+    python3 chip_smoke.py --tp
+
+runs steps 1-2 and then step 13 alone (building the [gen-main] weights;
+[tp-batch] runs its one-device reference itself), for work on tensor
+parallelism.
 """
 
 from __future__ import annotations
@@ -436,10 +471,11 @@ CKPT_DIR = "build/smoke_checkpoints"
 # built here, and one URL through a stub fetcher
 PIPE_REAL = ("Resume.pdf", "ragas_papers.pdf", "cube.PDF",
              "Vivek Malipatel - Resume.docx", "Intro To ML - Slide.pptx")
-# 32 generated documents, not 128 or 64: at 128 the whole run took 725 s
-# of its 1,200 (the pipeline 425 of them), and at 64 with [serve] ~640 s
-# (the pipeline 184 of them), over half its limit
-PIPE_DOCS, PIPE_CHUNKS = 32, 16
+# 16 generated documents, not 128, 64 or 32: at 128 the whole run took
+# 725 s of its 1,200 (the pipeline 425 of them), at 64 with [serve] ~640
+# s (the pipeline 184), and at 32 with [tp] 957-1,308 s (the pipeline
+# 131.5 s of the slowest)
+PIPE_DOCS, PIPE_CHUNKS = 16, 16
 PIPE_SERIAL_DOCS = 16  # generated documents again at max_concurrency=1
 PIPE_URL = "https://docs.example.com/guides/retrieval"
 PIPE_OBJECTS = "build/smoke_objects"
@@ -524,7 +560,8 @@ BATCH_ATTN_CHECKS = 88   # decode_attn launches held to plain (4 steps x 22)
 BATCH_STREAM_NEW = 64    # new tokens of the two streams and their chats
 BATCH_SPEC_K = 4
 BATCH_EXT = 4            # constrained chats (and as many plain) in one batch
-BATCH_SOLO = 4           # solo generate_ids runs, one at a time
+BATCH_SOLO = 1           # solo generate_ids runs, one at a time (cut
+                         # from 4 to leave [tp] its time)
 BATCH_SOLO_PROMPT = 512  # solo speculation at B 1
 # [batch]'s decode-step attention: (B, S, KVH, G, hd), S = 256 + 512
 BATCH_ATTN = (BATCH_SLOTS, BATCH_PROMPT + BATCH_HORIZON, 4, 8, 64)
@@ -555,6 +592,28 @@ LORA_CHECK_STEPS = 2    # the card held to the CPU copy on 2 steps
 # measured 9.30e-6 and 3.98e-3 (H100 80GB HBM3 at 700 W)
 LORA_LOSS_RTOL, LORA_GRAD_RTOL = 1e-4, 2e-2
 FT_STEPS, FT_LR = 2, 1e-4  # full fine-tune, bf16 weights
+# [tp]: tensor parallelism (parallel/tp.py) on one card: a data 2 x model 2
+# mesh of cuda:0 (the grid dryrun_multichip(4) builds) and a 1 x 4 one
+TP_MODELS = (2, 4)
+# [tp]'s depths were cut from [gen-main]'s and [batch]'s 128 new tokens
+# for time: a full run took up to 1,308 s with them at 64 and 128
+TP_NEW = 32             # [tp-gen]: new tokens at [gen-main]'s batch and prompt
+TP_LOGIT_ATOL = GEN_LOGIT_ATOL  # TP vs one device: bf16 sums in other orders
+TP_ATTN_CHECKS = 88     # decode_attn launches held to plain (4 steps x 22)
+TP_SPEC_K = 2           # [tp-batch]'s speculative batcher, as the dry run's
+TP_BATCH_NEW = 64       # [tp-batch]: new tokens a chat, held to [batch]'s first
+TP_SPEC_NEW = 32        # the speculative batcher's new tokens a chat
+TP_WARM_NEW = 8         # each TP batcher's warm-up chat
+TP_FORCED = 8           # [tp-gen]: rows teacher-forced through decode_step
+TP_STEPS = 2            # [tp-train]: steps of each pair
+# [tp-train], TP step vs one-device step from the same params: each step's
+# loss, relative, and gradient, relative L2 over the tree (bf16
+# activations summed in other orders). Measured on an H100 80GB HBM3 at
+# 700 W over both steps of the three pairs: losses at most 2.16e-4 apart
+# (the encoder's second step), gradients at most 1.55e-2 (LoRA's first),
+# so the limits are 4.6x and 3.2x that; a step on half the batch gives
+# a gradient of ~1.0, unsummed replica gradients ~0.69
+TP_LOSS_RTOL, TP_GRAD_RTOL = 1e-3, 5e-2
 # [train-serve]: the trained adapter beside the base in one batch
 TSERVE_CONVS, TSERVE_NEW = 4, 64  # conversations, each asked twice
 TSERVE_DIR = "build/smoke_lora"
@@ -579,7 +638,8 @@ MM_LOSS_RTOL = 1e-4
 SHARDS, SHARD_BATCH, SHARD_BATCHES = 4, 1024, 2
 SHARD_ATOL = 1e-5       # scores of equal ids, sharded vs one device
 SHARD_UNEQUAL = 0.05    # the share of rows that may differ from one device's
-SHARD_KG_QUERIES = 64
+SHARD_KG_QUERIES = 16    # cut from 64 for time: the CPU mesh's capacity
+                         # search takes ~0.6 s a query
 SHARD_IVF_CPU = 64      # queries held to a CPU copy of the sharded IVF
 
 
@@ -3667,12 +3727,24 @@ def record_ids(batcher):
     return seen
 
 
+def no_sep_params(params, words):
+    """[batch]'s weights: eos ([SEP]) unreachable for greedy decodes, its
+    LM-head column scaled to 0, so its logit is 0 against the ~N(0, 1)
+    others (a grammar's accepting states, where only eos is allowed,
+    still reach it)."""
+    sep = words.index("[SEP]")
+    head = {"q": params["lm_head"]["q"], "s": params["lm_head"]["s"].clone()}
+    head["s"][sep] = 0.0
+    return {**params, "lm_head": head}
+
+
 def run_batch(params, cfg, dev):
     """[batch]: concurrent chats through `LocalLLM.enable_batching` at the
     repo's documented batcher setting (docs/decoder.md, examples/
     tune_batcher.py): 8 slots, prompt 256 + horizon 512, chunks of 64,
     lookahead 2, on [gen-main]'s weights and flags. Returns (decode_attn
-    launches of the main run, max abs err of its checked launches)."""
+    launches of the main run, max abs err of its checked launches, the
+    main run's (prompts, token ids) for [tp-batch])."""
     import asyncio
 
     import torch
@@ -3684,13 +3756,7 @@ def run_batch(params, cfg, dev):
 
     words = serve_vocab(cfg.vocab_size)
     tok = WordPieceTokenizer.from_vocab_list(words, max_len=cfg.max_len)
-    # eos ([SEP]) unreachable for greedy decodes: its LM-head column scaled
-    # to 0, so its logit is 0 against the ~N(0, 1) others (a grammar's
-    # accepting states, where only eos is allowed, still reach it)
-    sep = words.index("[SEP]")
-    head = {"q": params["lm_head"]["q"], "s": params["lm_head"]["s"].clone()}
-    head["s"][sep] = 0.0
-    params = {**params, "lm_head": head}
+    params = no_sep_params(params, words)
     llm = LocalLLM(params, cfg, tok, model_name="tinyllama-1.1b-random",
                    device=dev)
     rng = np.random.default_rng(7)
@@ -3904,7 +3970,7 @@ def run_batch(params, cfg, dev):
         f"{exact1:.1%}")
     if not gap1 <= GEN_LOGIT_ATOL or len(spec1) != BATCH_NEW:
         raise AssertionError(f"[batch] solo speculation gap {gap1}")
-    return launches, attn_err[0]
+    return launches, attn_err[0], (prompts, plain_ids)
 
 
 def train_texts(rng):
@@ -7032,6 +7098,614 @@ def shard_only(dev, card) -> int:
     return 0
 
 
+# ------------------------------------------------------------------- [tp]
+
+
+def tp_devices(dev):
+    """Four mesh positions: cuda:0..3 on a host with four cards, else
+    ``dev`` four times (the shards then run in turn on one card)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n >= 4:
+        return [torch.device("cuda", i) for i in range(4)]
+    return [dev] * 4
+
+
+def tp_mesh(dev, model):
+    from rag_application_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(4, model=model, devices=tp_devices(dev))
+
+
+def checked_attn(label, limit):
+    """A stand-in for `decode_attend_int8` that holds the first ``limit``
+    launches to the plain version as they run (the cache is written in
+    place after each) and keeps the wrapper's count on itself."""
+    from rag_application_tpu_torch.ops import decode_attn as da
+
+    real = da.decode_attend_int8
+
+    def attn(*args):
+        out = real(*args)
+        if attn.launches <= limit:
+            plain = da.decode_attend_int8_plain(*args)
+            err = (out.float() - plain.float()).abs().max().item()
+            if err > 2 * bf16_ulp(plain.float().abs().max().item()):
+                raise AssertionError(f"{label} decode_attn != plain: {err}")
+            attn.err = max(attn.err, err)
+        return out
+
+    attn.launches, attn.err, attn.real = 0, 0.0, real
+    return attn
+
+
+@contextlib.contextmanager
+def attn_watch(attn):
+    from rag_application_tpu_torch.ops import decode_attn as da
+
+    da.decode_attend_int8 = attn
+    try:
+        yield attn
+    finally:
+        da.decode_attend_int8 = attn.real
+
+
+def last_logits(params, cfg, contexts, dev):
+    """Each context's next-token logits (f32, (n, V)) from one prefill of
+    the right-padded batch."""
+    import torch
+
+    from rag_application_tpu_torch.models import decoder as dec
+
+    T = max(len(c) for c in contexts)
+    ids = torch.zeros((len(contexts), T), dtype=torch.int32)
+    for b, c in enumerate(contexts):
+        ids[b, :len(c)] = torch.tensor([int(t) for t in c])
+    plen = torch.tensor([len(c) for c in contexts], dtype=torch.int32)
+    ck, cv = dec.init_kv_cache(cfg, len(contexts), T, device=dev)
+    with torch.no_grad():
+        out, _, _ = dec.prefill(params, cfg, ids.to(dev), plen.to(dev), ck,
+                                cv)
+    return out
+
+
+def held_tokens(label, one, sharded, cfg, prompts, want, got, dev):
+    """TP tokens ``got`` against one device's ``want``, row by row: equal,
+    or, where a row first differs, both trees' teacher-forced logits at
+    that step within TP_LOGIT_ATOL of each other and the TP token's logit
+    within TP_LOGIT_ATOL of the one-device top (a bf16 near-tie from the
+    changed order of sums). Returns (rows equal, rows held at a near-tie,
+    the largest logit difference at those steps)."""
+    firsts = []
+    for b, (w, g) in enumerate(zip(want, got)):
+        w, g = [int(t) for t in w], [int(t) for t in g]
+        if len(w) != len(g):
+            raise AssertionError(f"{label} row {b}: {len(g)} tokens, one "
+                                 f"device {len(w)}")
+        d = next((i for i, (x, y) in enumerate(zip(w, g)) if x != y), None)
+        if d is not None:
+            firsts.append((b, d, list(prompts[b]) + w[:d], g[d]))
+    if not firsts:
+        return len(want), 0, 0.0
+    ctx = [c for _, _, c, _ in firsts]
+    lo = last_logits(one, cfg, ctx, dev)
+    lt = last_logits(sharded, cfg, ctx, dev)
+    diff = (lo - lt).abs().max(-1).values
+    for i, (b, d, _, g) in enumerate(firsts):
+        gap = (lo[i].max() - lo[i, g]).item()
+        if not (diff[i].item() <= TP_LOGIT_ATOL and gap <= TP_LOGIT_ATOL):
+            raise AssertionError(f"{label} row {b} differs at step {d}: "
+                                 f"logits {diff[i].item():.4f} apart, the TP "
+                                 f"token {gap:.4f} below the top")
+    return len(want) - len(firsts), len(firsts), diff.max().item()
+
+
+def forced_decode(params, cfg, ids, toks, dev):
+    """The logits greedy `generate` picks ``toks`` (B, n) from, with
+    those tokens forced: one prefill of the full-length prompts ``ids``
+    (B, T), then `decode_step` fed each token in turn at generate's cache
+    layout (its int8 cache writes and, with ``attn_kernel``, the
+    decode-attention kernel, as generate runs them). Returns (n, B, V)
+    f32: step t's logits choose token t."""
+    import torch
+
+    from rag_application_tpu_torch.models import decoder as dec
+    from rag_application_tpu_torch.ops import decode_attn as da
+
+    B, T = ids.shape
+    n = toks.shape[1]
+    S = T + n
+    if cfg.kv_quant and cfg.attn_kernel and da.pick_block(S) is None:
+        S = -(-S // 256) * 256  # as generate rounds it
+    ck, cv = dec.init_kv_cache(cfg, B, S, device=dev)
+    slot_pos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(
+        B, S).contiguous()
+    plen = torch.full((B,), T, dtype=torch.int32, device=dev)
+    toks = torch.as_tensor(np.asarray(toks), device=dev).to(torch.int32)
+    with torch.no_grad():
+        logits, ck, cv = dec.prefill(params, cfg, ids, plen, ck, cv)
+        out = [logits]
+        for t in range(n - 1):
+            logits, ck, cv = dec.decode_step(params, cfg, toks[:, t], plen + t,
+                                             T + t, ck, cv,
+                                             slot_positions=slot_pos)
+            out.append(logits)
+    return torch.stack(out)
+
+
+def run_tp_gen(params, cfg, dev, card):
+    """[tp-gen]: `generate` at [gen-main]'s batch and prompt over the tree
+    sharded at model=2 (a data 2 x model 2 mesh) and at model=4 (1 x 4),
+    against one device. Returns the decode_attn launches of the TP runs
+    and the max abs err of the checked ones."""
+    import torch
+
+    from rag_application_tpu_torch.models import decoder as dec
+    from rag_application_tpu_torch.parallel import tp
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (GEN_B, GEN_T), generator=g,
+                        device=dev, dtype=torch.int32)
+    plen = torch.full((GEN_B,), GEN_T, dtype=torch.int32, device=dev)
+    eos, pad = cfg.vocab_size, -1  # no early stop
+
+    def timed(p, attn=None):
+        dec.generate(p, cfg, ids[:, :64], plen // 14, 2, eos, pad)  # warm
+        torch.cuda.synchronize()
+        if attn is not None:  # count (and hold) the timed run's launches
+            attn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out, n = dec.generate(p, cfg, ids, plen, TP_NEW, eos, pad)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not (n.cpu() == TP_NEW).all():
+            raise AssertionError("[tp-gen] generate stopped early")
+        return out.cpu().numpy(), ms, peak
+
+    want, ms1, peak1 = timed(params)
+    rate1 = GEN_B * TP_NEW / (ms1 / 1e3)
+    log(f"  one device: B {GEN_B} x prompt {GEN_T} + {TP_NEW} new in "
+        f"{ms1:.1f} ms -> {rate1:,.0f} new tokens/s; peak {peak1:.2f} GiB")
+    # every step of TP_FORCED rows, both trees fed one device's tokens
+    forced1 = forced_decode(params, cfg, ids[:TP_FORCED],
+                            want[:TP_FORCED], dev)
+    own = (forced1.argmax(-1).cpu().numpy().T == want[:TP_FORCED]).mean()
+    log(f"  one device teacher-forced on its own tokens ({TP_FORCED} rows "
+        f"through decode_step): argmax at {own:.1%} of steps")
+    if not own >= 0.9:
+        raise AssertionError("[tp-gen] one device's forced decode does not "
+                             "pick its own tokens")
+    launches, err = 0, 0.0
+    for m in TP_MODELS:
+        mesh = tp_mesh(dev, m)
+        t0 = time.perf_counter()
+        sharded = tp.shard_params(mesh, params)
+        torch.cuda.synchronize()
+        t_shard = time.perf_counter() - t0
+        attn = checked_attn("[tp-gen]", TP_ATTN_CHECKS if m == TP_MODELS[0]
+                            else 0)
+        with attn_watch(attn):
+            got, ms, peak = timed(sharded, attn)
+        want_n = cfg.num_layers * TP_NEW
+        if attn.launches != want_n:
+            raise AssertionError(f"[tp-gen] model={m}: decode_attn launched "
+                                 f"{attn.launches} times, expected {want_n}")
+        launches += attn.launches
+        err = max(err, attn.err)
+        eq, near, gap = held_tokens(f"[tp-gen] model={m}", params, sharded,
+                                    cfg, ids.cpu().numpy(), want, got, dev)
+        lo = last_logits(params, cfg, ids[:8].cpu().numpy(), dev)
+        lt = last_logits(sharded, cfg, ids[:8].cpu().numpy(), dev)
+        ldiff = (lo - lt).abs().max().item()
+        fdiff = (forced_decode(sharded, cfg, ids[:TP_FORCED],
+                               want[:TP_FORCED], dev) - forced1).abs()
+        fstep = fdiff.amax(dim=(1, 2))  # each step's worst logit
+        log(f"  model={m} (mesh {mesh.shape}, sharded in {t_shard:.2f} s): "
+            f"{ms:.1f} ms -> {GEN_B * TP_NEW / (ms / 1e3):,.0f} new tokens/s "
+            f"({ms / ms1:.2f}x one device's time); peak {peak:.2f} GiB; "
+            f"{eq} of {GEN_B} rows equal to one device's, {near} held at a "
+            f"near-tie (max logit difference there {gap:.4f}); prefill "
+            f"logits of 8 rows max abs difference {ldiff:.4f} (tolerance "
+            f"{TP_LOGIT_ATOL}); {TP_FORCED} rows teacher-forced on one "
+            f"device's tokens through decode_step, all {TP_NEW} steps: "
+            f"logits max abs difference {fstep.max().item():.4f} "
+            f"(tolerance {TP_LOGIT_ATOL}; median step "
+            f"{fstep.median().item():.4f}, mean element "
+            f"{fdiff.mean().item():.2e}); decode_attn launches {attn.launches} "
+            f"({cfg.num_layers} a step), the first "
+            f"{TP_ATTN_CHECKS if m == TP_MODELS[0] else 0} held to plain "
+            f"(max abs err {attn.err:.3g}) ({card})")
+        if not ldiff <= TP_LOGIT_ATOL:
+            raise AssertionError(f"[tp-gen] prefill logits {ldiff}")
+        if not fstep.max().item() <= TP_LOGIT_ATOL:
+            bad = [i for i, v in enumerate(fstep.tolist())
+                   if v > TP_LOGIT_ATOL]
+            raise AssertionError(f"[tp-gen] model={m}: teacher-forced decode "
+                                 f"logits past {TP_LOGIT_ATOL} at steps {bad}")
+        del fdiff
+        del sharded
+        torch.cuda.empty_cache()
+    return launches, err
+
+
+def run_tp_batch(params, cfg, dev, card, ref=None):
+    """[tp-batch]: `LocalLLM.enable_batching` at [batch]'s setting over
+    the model=2 tree, [batch]'s 16 chats with its registered prefix,
+    TP_BATCH_NEW new tokens each, held to the first TP_BATCH_NEW of
+    [batch]'s one-device tokens (``ref``; run here when None); then the
+    same chats through a ``spec_k=2`` batcher (the dry
+    run's setting) for TP_SPEC_NEW new tokens, held to the first
+    TP_SPEC_NEW one-device tokens the same way. Returns
+    (decode_attn launches, max abs err of the checked ones)."""
+    import asyncio
+
+    import torch
+
+    from rag_application_tpu_torch.llm.local import LocalLLM
+    from rag_application_tpu_torch.llm.router import ChatMessage
+    from rag_application_tpu_torch.models.wordpiece import WordPieceTokenizer
+    from rag_application_tpu_torch.parallel import tp
+
+    words = serve_vocab(cfg.vocab_size)
+    tok = WordPieceTokenizer.from_vocab_list(words, max_len=cfg.max_len)
+    one = no_sep_params(params, words)
+    sharded = tp.shard_params(tp_mesh(dev, 2), one)
+    rng = np.random.default_rng(7)  # [batch]'s conversations
+    header, questions = batch_header_and_questions(rng, BATCH_REQS + 1,
+                                                   words)
+    convs = [[ChatMessage("system", header), ChatMessage("user", q)]
+             for q in questions]
+
+    def serve(p, attn=None, new=BATCH_NEW, warm=BATCH_NEW, **kw):
+        llm = LocalLLM(p, cfg, tok, model_name="tinyllama-1.1b-random",
+                       device=dev)
+        b = llm.enable_batching(slots=BATCH_SLOTS, prompt_pad=BATCH_PROMPT,
+                                horizon=BATCH_HORIZON, chunk=BATCH_CHUNK,
+                                lookahead=BATCH_LOOKAHEAD, **kw)
+        llm.register_prefix_text(f"system: {header}\n")
+        seen = record_ids(b)
+
+        async def many(cs, n):
+            return await asyncio.gather(*[llm.chat(c, max_tokens=n)
+                                          for c in cs])
+
+        asyncio.run(many([convs[-1]], warm))  # the warm-up chat
+        torch.cuda.synchronize()
+        if attn is not None:  # count (and hold) the main run's launches
+            attn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        steps0, hits0 = b.steps, b.prefix_hits
+        t0 = time.perf_counter()
+        asyncio.run(many(convs[:BATCH_REQS], new))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prompts = [llm.render(c) for c in convs[:BATCH_REQS]]
+        outs = [seen[(tuple(p_), 0)] for p_ in prompts]
+        return (prompts, outs, wall, b.steps - steps0,
+                b.prefix_hits - hits0,
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    if ref is None:
+        prompts, want, wall1, _, _, _ = serve(one)
+        log(f"  one device ([batch]'s main run, here): {BATCH_REQS} x "
+            f"{BATCH_NEW} in {wall1:.2f} s -> "
+            f"{BATCH_REQS * BATCH_NEW / wall1:.1f} tokens/s")
+    else:
+        prompts, want = ref
+    attn = checked_attn("[tp-batch]", TP_ATTN_CHECKS)
+    with attn_watch(attn):
+        p2, got, wall, steps, hits, peak = serve(sharded, attn,
+                                                 new=TP_BATCH_NEW,
+                                                 warm=TP_WARM_NEW)
+    if p2 != prompts:
+        raise AssertionError("[tp-batch] prompts differ from [batch]'s")
+    n_tok = sum(map(len, got))
+    eq, near, gap = held_tokens("[tp-batch]", one, sharded, cfg, prompts,
+                                [w[:TP_BATCH_NEW] for w in want], got, dev)
+    # every step of BATCH_CHECKED TP requests: the token the TP batcher
+    # chose against one device's logits in the same context
+    fgap, fexact = teacher_forced(one, cfg, prompts[:BATCH_CHECKED],
+                                  got[:BATCH_CHECKED], dev)
+    want_n = cfg.num_layers * steps
+    log(f"  model=2: {BATCH_REQS} chats x {TP_BATCH_NEW} new at once in "
+        f"{wall:.2f} s -> {n_tok / wall:.1f} tokens/s; steps {steps} "
+        f"({wall / steps * 1e3:.1f} ms a step), prefix hits {hits}; peak "
+        f"{peak:.2f} GiB; {eq} of {BATCH_REQS} requests equal to the one "
+        f"device's, {near} held at a near-tie (max logit difference "
+        f"{gap:.4f}); {BATCH_CHECKED} requests teacher-forced on one "
+        f"device's tree, every step: the TP token at most {fgap:.4f} below "
+        f"the top logit (tolerance {TP_LOGIT_ATOL}), the argmax at "
+        f"{fexact:.1%}; decode_attn launches {attn.launches} (the batcher's "
+        f"steps x {cfg.num_layers} = {want_n}), the first {TP_ATTN_CHECKS} "
+        f"held to plain, max abs err {attn.err:.3g} ({card})")
+    if n_tok != BATCH_REQS * TP_BATCH_NEW or hits != BATCH_REQS:
+        raise AssertionError(f"[tp-batch] {n_tok} tokens, {hits} prefix hits")
+    if not fgap <= TP_LOGIT_ATOL:
+        raise AssertionError(f"[tp-batch] teacher-forced gap {fgap}")
+    if attn.launches != want_n:
+        raise AssertionError(f"[tp-batch] decode_attn launched "
+                             f"{attn.launches} times, expected {want_n}")
+    # speculation over the sharded tree (verify blocks of T = 3 run the
+    # einsum attention)
+    _, spec, swall, ssteps, shits, _ = serve(
+        sharded, new=TP_SPEC_NEW, warm=TP_WARM_NEW, spec_k=TP_SPEC_K)
+    seq, snear, sgap = held_tokens("[tp-batch] spec_k", one, sharded, cfg,
+                                   prompts, [w[:TP_SPEC_NEW] for w in want],
+                                   spec, dev)
+    sfgap, sfexact = teacher_forced(one, cfg, prompts[:BATCH_CHECKED],
+                                    spec[:BATCH_CHECKED], dev)
+    log(f"  model=2, spec_k {TP_SPEC_K}, {BATCH_REQS} chats x {TP_SPEC_NEW} "
+        f"new (a {TP_WARM_NEW}-token warm-up): {sum(map(len, spec))} tokens in "
+        f"{swall:.2f} s -> {sum(map(len, spec)) / swall:.1f} tokens/s, "
+        f"{ssteps} steps, prefix hits {shits}; {seq} of {BATCH_REQS} equal "
+        f"to the one device's plain tokens, {snear} held at a near-tie "
+        f"(max logit difference {sgap:.4f}); teacher-forced, every step of "
+        f"{BATCH_CHECKED}: at most {sfgap:.4f} below the top, argmax at "
+        f"{sfexact:.1%}")
+    if not sfgap <= TP_LOGIT_ATOL:
+        raise AssertionError(f"[tp-batch] spec_k teacher-forced gap {sfgap}")
+    del sharded
+    torch.cuda.empty_cache()
+    return attn.launches, attn.err
+
+
+def named_leaves(tree, pre=""):
+    """(name, leaf) of a param tree, a sharded leaf as one leaf."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, f"{pre}{k}.")
+    else:
+        yield pre[:-1], tree
+
+
+def state_gib(st):
+    """GiB a train state holds: its params (every replica's slices),
+    their gradients and the optimizer's moments."""
+    import torch
+
+    from rag_application_tpu_torch.parallel import tp
+
+    ts = tp.tensors(st.params)
+    n = sum(t.numel() * t.element_size() for t in ts)
+    n += sum(t.grad.numel() * t.grad.element_size() for t in ts
+             if t.grad is not None)
+    n += sum(v.numel() * v.element_size() for s in st.opt_state.state.values()
+             for v in s.values() if isinstance(v, torch.Tensor) and v.dim())
+    return n / 2 ** 30
+
+
+def grad_rel(one, sharded):
+    """Relative L2 distance of a sharded tree's gradients (data row 0's
+    slices, gathered leaf by leaf) from the one-device tree's."""
+    from rag_application_tpu_torch.parallel import tp
+
+    num = den = 0.0
+    for (_, a), (_, b) in zip(named_leaves(one), named_leaves(sharded)):
+        g1 = a.grad.float()
+        g2 = tp.full(b.map(lambda t: t.grad)).float()
+        num += float((g2 - g1).norm()) ** 2
+        den += float(g1.norm()) ** 2
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def tp_sync(one, sharded):
+    """Set every replica's slices of a sharded tree to the one-device
+    tree's values."""
+    import torch
+
+    with torch.no_grad():
+        for (ka, a), (kb, b) in zip(named_leaves(one), named_leaves(sharded)):
+            if ka != kb:
+                raise AssertionError(f"trees differ: {ka} against {kb}")
+            for row in b.shards:
+                n = a.shape[b.dim] // len(row) if b.dim is not None else 0
+                for j, t in enumerate(row):
+                    t.copy_(a if b.dim is None else a.narrow(b.dim, j * n, n))
+
+
+def tp_step_pair(label, one_step, one_state, tp_step, tp_state, args, card,
+                 faults=()):
+    """TP_STEPS steps of a sharded train step beside the one-device step,
+    each from the same params (the sharded state's, every replica, set to
+    the one-device state's before the step): each step's loss (relative
+    TP_LOSS_RTOL) and gradient (relative L2 over the whole tree,
+    TP_GRAD_RTOL), and the data replicas bit-equal after it. The params
+    after each step are printed, not held: Adam's first update is about
+    lr x sign(g), so where a gradient element is near zero rounding noise
+    flips its sign, and two right runs differ by 2 lr there. Then each
+    planted fault of ``faults`` ((name, a context manager factory) pairs)
+    runs one more pair the same way under its patch and must break one
+    of the limits. Prints the step ms, each step's peak above the memory
+    held before it, and the GiB each state holds."""
+    import torch
+
+    from rag_application_tpu_torch.parallel import tp
+
+    sts = {"one": one_state, "tp": tp_state}
+    steps = {"one": one_step, "tp": tp_step}
+    ms = {k: [] for k in sts}
+    peak = {k: 0.0 for k in sts}
+
+    def pair(record):
+        tp_sync(sts["one"].params, sts["tp"].params)
+        loss = {}
+        for k in sts:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            sts[k], m = steps[k](sts[k], *args)
+            loss[k] = float(m["loss"])
+            torch.cuda.synchronize()
+            if record:
+                ms[k].append((time.perf_counter() - t0) * 1e3)
+                peak[k] = max(peak[k], (torch.cuda.max_memory_allocated()
+                                        - before) / 2 ** 30)
+        rel = abs(loss["tp"] - loss["one"]) / abs(loss["one"])
+        worst = max((tp.full(b).detach().float() - a.detach().float()
+                     ).abs().max().item() for (_, a), (_, b) in zip(
+                         named_leaves(sts["one"].params),
+                         named_leaves(sts["tp"].params)))
+        return (loss, rel, grad_rel(sts["one"].params, sts["tp"].params),
+                tp.replicas_equal(sts["tp"].params), worst)
+
+    def held(rel, grel, same):
+        return rel <= TP_LOSS_RTOL and grel <= TP_GRAD_RTOL and same
+
+    for i in range(TP_STEPS):
+        loss, rel, grel, same, worst = pair(True)
+        log(f"  {label} step {i + 1}: loss {loss['tp']:.6f} against one "
+            f"device's {loss['one']:.6f} (relative {rel:.2e}, tolerance "
+            f"{TP_LOSS_RTOL}); gradient relative L2 {grel:.2e} (tolerance "
+            f"{TP_GRAD_RTOL}); data replicas bit-equal {same}; params after "
+            f"it max abs difference {worst:.3g} (not held)")
+        if not held(rel, grel, same):
+            raise AssertionError(f"{label} step {i + 1}: loss {rel}, "
+                                 f"gradient {grel}, replicas equal {same}")
+    log(f"  {label}: step ms {[round(x, 1) for x in ms['tp']]} against "
+        f"{[round(x, 1) for x in ms['one']]}; a step's peak above the memory "
+        f"held before it {peak['tp']:.2f} GiB against {peak['one']:.2f}; the "
+        f"state holds {state_gib(sts['tp']):.2f} GiB against "
+        f"{state_gib(sts['one']):.2f} ({card})")
+    for name, patch in faults:
+        with patch():
+            _, rel, grel, same, _ = pair(False)
+        log(f"  {label} control, {name}: loss relative {rel:.2e}, gradient "
+            f"relative L2 {grel:.2e}, replicas bit-equal {same}: "
+            f"{'passes' if held(rel, grel, same) else 'fails'} the limits")
+        if held(rel, grel, same):
+            raise AssertionError(f"{label}: the planted fault '{name}' "
+                                 f"passes the limits")
+
+
+def run_tp_train(params, cfg, dev, card):
+    """[tp-train]: `shard_lm_train_setup` at [train]'s full fine-tune
+    setting, `shard_train_setup` at [train-enc]'s and the sharded LoRA
+    step at [train-lora]'s, each on the data 2 x model 2 mesh beside its
+    one-device step from the same start."""
+    import torch
+
+    from rag_application_tpu_torch.config import EncoderConfig
+    from rag_application_tpu_torch.models import decoder as dec
+    from rag_application_tpu_torch.models import lora as tl
+    from rag_application_tpu_torch.models import train as tt
+    from rag_application_tpu_torch.models import train_data as td
+    from rag_application_tpu_torch.models.encoder import init_encoder
+    from rag_application_tpu_torch.models.tokenizer import HashTokenizer
+    from rag_application_tpu_torch.parallel import tp
+
+    mesh = tp_mesh(dev, 2)
+    tcfg = dataclasses.replace(cfg, kv_quant=False, attn_kernel=False)
+    batch = lora_batch(dev, cfg.vocab_size)
+
+    # the full fine-tune: bf16 weights, B 8 x T 256, remat
+    g = torch.Generator(device=dev).manual_seed(0)
+    base = dec.init_decoder_params(g, tcfg, dev)
+    opt = tt.make_optimizer(lr=FT_LR)
+    one = tt.init_train_state(base, opt)
+    st, step, _ = tt.shard_lm_train_setup(mesh, base, tcfg, opt)
+    del base
+    # planted faults the limits must catch: both data rows fed row 0's
+    # half of the batch, and the replicas' gradients left unsummed (last:
+    # it leaves the replicas' moments apart)
+    split = tp.split_batch
+
+    def half(mesh, x):
+        parts = split(mesh, x)
+        return [parts[0]] * len(parts)
+
+    faults = (("half the batch", lambda: mock.patch.object(
+        tp, "split_batch", half)),
+              ("replica gradients unsummed", lambda: mock.patch.object(
+                  tp, "sum_replica_grads", lambda tree: None)))
+    tp_step_pair("[tp-train] LM full fine-tune", tt.make_lm_train_step(
+        tcfg, opt), one, step, st, (batch,), card, faults)
+    del one, st
+    torch.cuda.empty_cache()
+
+    # the encoder: EncoderConfig(), matryoshka dims, [train-enc]'s batch
+    ecfg = EncoderConfig()
+    rng = np.random.default_rng(11)
+    texts = train_texts(rng)
+    pairs = td.crop_pairs(texts, rng) + td.keyword_pairs(texts, rng)
+    ebatch = next(td.batches(pairs, HashTokenizer(ecfg.vocab_size,
+                                                  TRAIN_LEN),
+                             batch_size=TRAIN_BATCH, max_len=TRAIN_LEN))
+    enc = init_encoder(ecfg, device=dev)
+    opt = tt.make_optimizer(lr=TRAIN_ENC_LR)
+    one = tt.init_train_state(enc.params, opt)
+    st, step, _ = tt.shard_train_setup(mesh, enc, opt,
+                                       matryoshka_dims=TRAIN_DIMS)
+    tp_step_pair("[tp-train] encoder", tt.make_train_step(
+        enc.model, opt, matryoshka_dims=TRAIN_DIMS), one, step, st,
+        (ebatch,), card)
+    del one, st, enc
+    torch.cuda.empty_cache()
+
+    # LoRA r 8 over the int8 base, kv_quant off
+    wrapped = tl.lora_init(torch.Generator(device=dev).manual_seed(1),
+                           params, r=LORA_R, alpha=LORA_ALPHA)
+    sh_wrapped = tp.shard_params(mesh, wrapped)
+    opt = tt.make_optimizer(lr=LORA_LR)
+    one = tt.init_train_state(tl.lora_adapters(wrapped), opt)
+    st = tt.init_train_state(tl.lora_adapters(sh_wrapped), opt)
+    step = tl.make_lora_train_step(tcfg, opt, remat=True)
+    tp_step_pair("[tp-train] LoRA", lambda s, b: step(s, wrapped, b), one,
+                 lambda s, b: step(s, sh_wrapped, b), st, (batch,), card)
+    del one, st, wrapped, sh_wrapped
+    torch.cuda.empty_cache()
+
+
+def tp_phase(params, cfg, dev, card, batch_ref=None):
+    """[tp], tensor parallelism on the card: [tp-gen], [tp-batch],
+    [tp-train] and `dryrun_multichip(4)`, each logged with its time;
+    returns the decode_attn launches and the checked ones' max abs
+    err."""
+    import torch
+
+    from rag_application_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    log(f"[tp-gen] generate over the tree sharded at model {TP_MODELS}, "
+        f"{GEN_B} x {GEN_T} + {TP_NEW}, [gen-main]'s weights and flags "
+        f"({card})")
+    launches, err = run_tp_gen(params, cfg, dev, card)
+    t1 = time.perf_counter()
+    log(f"[tp-batch] the continuous batcher over the model=2 tree at "
+        f"[batch]'s setting ({card})")
+    n, e = run_tp_batch(params, cfg, dev, card, batch_ref)
+    launches, err = launches + n, max(err, e)
+    t2 = time.perf_counter()
+    log(f"[tp-train] DP x TP steps on a data 2 x model 2 mesh ({card})")
+    run_tp_train(params, cfg, dev, card)
+    t3 = time.perf_counter()
+    dryrun_multichip(4, devices=tp_devices(dev))
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    log(f"[tp] {t4 - t0:.1f} s: gen {t1 - t0:.1f}, batch {t2 - t1:.1f}, "
+        f"train {t3 - t2:.1f}, dry run {t4 - t3:.1f}")
+    return launches, err
+
+
+def tp_only(dev, card) -> int:
+    """`--tp`: [tp] alone (with the [gen-main] weights built here)."""
+    import torch
+
+    from rag_application_tpu_torch.models import decoder as dec
+
+    cfg = dec.DecoderConfig(**GEN_CFG)
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = dec.quantize_decoder_params(dec.init_decoder_params(g, cfg, dev))
+    tp_phase(params, cfg, dev, card)
+    log(card)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -7084,6 +7758,8 @@ def main() -> int:
         return evals_only(dev, card)
     if sys.argv[1:] == ["--shard"]:
         return shard_only(dev, card)
+    if sys.argv[1:] == ["--tp"]:
+        return tp_only(dev, card)
 
     from rag_application_tpu_torch.ops import quant as oq
 
@@ -7198,7 +7874,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_local_llm(params, gcfg, dev)
     torch.cuda.empty_cache()
-    batch_launches, batch_attn_err = batch_phase(params, gcfg, dev, card)
+    batch_launches, batch_attn_err, batch_ref = batch_phase(params, gcfg,
+                                                            dev, card)
     attn_err = max(attn_err, batch_attn_err)
     torch.cuda.empty_cache()
     train_launches, train_attn_err = train_phase(params, gcfg, dev, card)
@@ -7209,6 +7886,8 @@ def main() -> int:
     scan_bf_err = max(scan_bf_err, serve_errs[1])
     bm25_err = max(bm25_err, serve_errs[2])
     attn_err = max(attn_err, serve_attn_err)
+    tp_launches, tp_attn_err = tp_phase(params, gcfg, dev, card, batch_ref)
+    attn_err = max(attn_err, tp_attn_err)
 
     def entry(name, source, replaces, launches_, err, t):
         ms, plain_ms, lib_ms, bound_ms, bound_by = t
@@ -7241,7 +7920,7 @@ def main() -> int:
         entry("decode_attn", "rag_application_tpu_torch/csrc/decode_attn.cu",
               "rag_application_tpu/ops/decode_attn.py:86",
               attn_launches + batch_launches + train_launches
-              + serve_launches["decode_attn"],
+              + serve_launches["decode_attn"] + tp_launches,
               attn_err,
               attn_t),
         entry("prep_vectors", "rag_application_tpu_torch/csrc/prep_vectors.cu",

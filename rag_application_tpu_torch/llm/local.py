@@ -55,12 +55,20 @@ from ..models.decoder import (
     sample_logits,
     score_continuations,
 )
+from ..parallel import tp
 from ..utils import DeviceLike, resolve_device
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:
+    """The tree on ``device``; a sharded tree (parallel/tp.py) stays on
+    its mesh, whose merge device must be ``device``."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, tp.Sharded):
+        if tree.device != device:
+            raise ValueError(f"a tree sharded with merge device "
+                             f"{tree.device} for a LocalLLM on {device}")
+        return tree
     return tree.to(device)
 
 
@@ -69,7 +77,9 @@ class LocalLLM:
 
     `tokenizer` needs `encode(text) -> List[int]` and
     `decode(ids) -> str` (models/wordpiece.py provides both). The params
-    are moved to ``device`` (default: cuda)."""
+    are moved to ``device`` (default: cuda); a tree sharded by
+    `parallel/tp.py::shard_params` stays on its mesh and ``device`` is
+    its merge device."""
 
     def __init__(self, params: Dict[str, Any], cfg: DecoderConfig,
                  tokenizer, *, eos_id: Optional[int] = None,

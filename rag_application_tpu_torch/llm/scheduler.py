@@ -47,8 +47,9 @@ vector rides every prefill and chunk step as the decoder's ``lora``
 argument, and rows with different adapters share one batch. An adapter
 row never reuses a registered prefix's K/V, which the base computed.
 
-Not ported yet: TP-sharded parameters (parallel/*) raise
-`NotImplementedError`.
+TP-sharded parameters (parallel/tp.py::shard_params) run unchanged: the
+decoder's entry points take them, and the batcher's caches, row state
+and sampling live on their merge device.
 """
 
 from __future__ import annotations
@@ -544,26 +545,14 @@ def _readback(out: torch.Tensor) -> np.ndarray:
     return host.numpy()
 
 
-def _no_tp(params: Dict[str, Any]) -> None:
-    if not torch.distributed.is_available():
-        return
-    from torch.distributed.tensor import DTensor
-
-    for v in params.values():
-        for t in (v.values() if isinstance(v, dict) else [v]):
-            if isinstance(t, DTensor):
-                raise NotImplementedError(
-                    "TP-sharded decoder parameters are not ported yet "
-                    "(parallel/*): give the batcher tensors on one device")
-
-
 class ContinuousBatcher:
     """Async continuous-batching frontend over one decoder + cache.
 
     `submit` enqueues a prompt and resolves to the generated ids; the
     internal loop admits pending requests into free rows between decode
     chunks. One instance per (params, cfg); all sampling knobs are fixed
-    per instance. The device is the params'."""
+    per instance. The device is the params' (a sharded tree's merge
+    device)."""
 
     def __init__(self, params: Dict[str, Any], cfg: DecoderConfig, *,
                  slots: int = 8, prompt_pad: int = 128,
@@ -575,7 +564,6 @@ class ContinuousBatcher:
                  sampling_ext: bool = False, max_constraints: int = 8):
         if chunk < 1 or horizon < chunk:
             raise ValueError("need chunk >= 1 and horizon >= chunk")
-        _no_tp(params)
         # spec_k works for greedy (argmax-agreement acceptance) AND
         # sampled batchers (rejection-sampled acceptance preserving the
         # filtered distribution exactly); composed with sampling_ext,

@@ -51,6 +51,16 @@ views of the cache, as the reference's layer scan takes the cache
 is still written, detached. `remat=True` checkpoints each layer
 (`torch.utils.checkpoint`, non-reentrant) with the numerics of
 ``remat=False``.
+
+Tensor parallelism: every entry point takes a tree placed by
+`parallel/tp.py::shard_params` where it takes a plain one, as the
+reference takes ``jax.device_put(params, param_shardings(...))``. Each
+product runs on the shards that hold its weight's slices (`_mm`), the
+embedding looks up each vocabulary shard's ids (`_take_emb`), norms and
+biases gather their vectors, and the MLP keeps each shard's slice of its
+width between w_gate/w_up and w_down. Attention, the caches and sampling
+run on the merge device on whole heads, so the decode-attention kernel
+launches there as on one device.
 """
 
 from __future__ import annotations
@@ -65,6 +75,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..ops import decode_attn as _da
+from ..parallel import tp
 from ..utils import DeviceLike, resolve_device
 
 NEG = -1.0e30
@@ -118,6 +129,7 @@ def _dtype(cfg: DecoderConfig) -> torch.dtype:
 
 
 def _params_device(params: Dict[str, Any]) -> torch.device:
+    """The params' device; a sharded tree's merge device."""
     emb = params["tok_emb"]
     return (emb["q"] if isinstance(emb, dict) else emb).device
 
@@ -135,6 +147,8 @@ def _tensors(tree: Any):
             yield from _tensors(v)
     elif isinstance(tree, torch.Tensor):
         yield tree
+    elif isinstance(tree, tp.Sharded):
+        yield from tree.tensors()
 
 
 def _trains(params: Dict[str, Any], lora: Optional[Dict[str, Any]]) -> bool:
@@ -250,16 +264,27 @@ def quantize_decoder_params(params: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def _mm(x: torch.Tensor, w: Any) -> torch.Tensor:
+def _mm(x: Any, w: Any, split: bool = False) -> Any:
     """x @ w for a plain matrix, a quantized {"q","s"} pair, or a
     LoRA-wrapped {"w","a","b","s"} leaf (models/lora.py): the base
     product plus ((x @ a) @ b) * s, each factor cast to x.dtype, over a
     plain or quantized base; the (in, out) product is never formed. The
     quantized scale is cast to x.dtype before it multiplies, as in the
-    reference."""
+    reference.
+
+    A sharded weight (parallel/tp.py) runs this product on each shard
+    with that shard's slices (`tp.matmul`); with ``split`` an
+    output-sharded product stays apart as `tp.Parts`."""
+    if tp.is_sharded(w):
+        return tp.matmul(x, w, _mm_one, split=split)
+    return _mm_one(tp.full(x), w)
+
+
+def _mm_one(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """`_mm` for a weight of plain tensors on x's device."""
     if isinstance(w, dict):
         if "a" in w:  # LoRA wrapper
-            y = _mm(x, w["w"])
+            y = _mm_one(x, w["w"])
             lo = (x @ w["a"].to(x.dtype)) @ w["b"].to(x.dtype)
             return y + lo * w["s"].to(x.dtype)
         y = x @ w["q"].to(x.dtype)
@@ -273,6 +298,8 @@ def _mm(x: torch.Tensor, w: Any) -> torch.Tensor:
 
 
 def _take_emb(emb: Any, ids: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    if tp.is_sharded(emb):
+        return tp.take_rows(emb, ids, lambda e, i: _take_emb(e, i, dt))
     ids = ids.long()
     if isinstance(emb, dict):
         rows = emb["q"][ids].to(dt)
@@ -321,7 +348,8 @@ def _attn_kernel_ok(cfg: DecoderConfig, seq_len: int) -> bool:
                          head_dim=cfg.head_dim)
 
 
-def _rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+def _rmsnorm(x: torch.Tensor, w: Any, eps: float) -> torch.Tensor:
+    w = tp.full(w)
     xf = x.float()
     n = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (n * w.float()).to(x.dtype)
@@ -367,9 +395,12 @@ def _apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 def _layer(p: Any, i: int) -> Any:
     """Layer i of a stacked leaf; dict leaves (int8 pairs, caches, LoRA
-    wrappers over either) slice leaf by leaf."""
+    wrappers over either) slice leaf by leaf, sharded leaves shard by
+    shard."""
     if isinstance(p, dict):
         return {k: _layer(v, i) for k, v in p.items()}
+    if isinstance(p, tp.Sharded):
+        return p.layer(i)
     return p[i]
 
 
@@ -443,15 +474,23 @@ def forward(
             layer_params[t + ":la"] = bank["a"].index_select(1, aid)
             layer_params[t + ":lb"] = bank["b"].index_select(1, aid)
 
+    # checked once a forward: a one-device tree's products skip the
+    # sharding dispatch (the decode loop is host-bound)
+    sharded = tp.is_sharded(layer_params)
+
     def kv(c):
         return c["q"].to(dt) if cfg.kv_quant else c
 
-    def proj(h, lp, name):
-        """Dense projection + this row's rank-r LoRA delta (if any)."""
-        y = _mm(h, lp[name])
+    def proj(h, lp, name, split=False):
+        """Dense projection + this row's rank-r LoRA delta (if any). Over
+        sharded weights, ``split`` keeps an output-sharded result apart
+        (`tp.Parts`) for the next product."""
+        y = (_mm(h, lp[name], split=split) if sharded
+             else _mm_one(h, lp[name]))
         la = lp.get(name + ":la")                          # (B, in, r)
         if la is None:
             return y
+        h, y = tp.full(h), tp.full(y)
         lo = torch.einsum("bth,bhr->btr", h, la.to(h.dtype))
         return y + torch.einsum("btr,bro->bto", lo,
                                 lp[name + ":lb"].to(h.dtype))
@@ -461,9 +500,9 @@ def forward(
         h = _rmsnorm(x, lp["attn_norm"], cfg.eps)
         q, k, v = proj(h, lp, "wq"), proj(h, lp, "wk"), proj(h, lp, "wv")
         if "bq" in lp:  # Qwen2-family projection biases, pre-RoPE
-            q = q + lp["bq"].to(q.dtype)
-            k = k + lp["bk"].to(k.dtype)
-            v = v + lp["bv"].to(v.dtype)
+            q = q + tp.full(lp["bq"]).to(q.dtype)
+            k = k + tp.full(lp["bk"]).to(k.dtype)
+            v = v + tp.full(lp["bv"]).to(v.dtype)
         q = _apply_rope(q.reshape(B, T, cfg.heads, hd), cos, sin)
         k = _apply_rope(k.reshape(B, T, kvh, hd), cos, sin)
         v = v.reshape(B, T, kvh, hd)
@@ -506,8 +545,12 @@ def forward(
             del probs
         x = x + proj(out.reshape(B, T, cfg.heads * hd), lp, "wo")
         h = _rmsnorm(x, lp["ffn_norm"], cfg.eps)
-        return x + proj(F.silu(proj(h, lp, "w_gate")) * proj(h, lp, "w_up"),
-                        lp, "w_down")
+        # sharded: w_gate and w_up split the MLP width as w_down's
+        # contraction does, so each shard keeps its slice (Megatron)
+        act = tp.pointwise(lambda g, u: F.silu(g) * u,
+                           proj(h, lp, "w_gate", split=True),
+                           proj(h, lp, "w_up", split=True))
+        return x + proj(act, lp, "w_down")
 
     for i in range(cfg.num_layers):
         if remat and train:

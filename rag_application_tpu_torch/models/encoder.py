@@ -29,6 +29,14 @@ from PyTorch's habits:
 
 The reference computes all of this outside any Pallas kernel (XLA ops),
 so plain torch ops are its port.
+
+Tensor parallelism: ``forward(..., params=...)`` runs the same math over
+a parameter map (name -> leaf) instead of the module's own weights, and
+its leaves may be sharded (parallel/tp.py::shard_params): `_dense` runs
+on the shards that hold its kernel's slices, `_layer_norm` gathers its
+vectors, the embeddings look up each shard's rows. `apply` takes such a
+map, and `models/train.py`'s encoder step, sharded or not,
+differentiates through this route.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import EncoderConfig
+from ..parallel import tp
 from ..utils import DeviceLike, resolve_device
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
@@ -51,16 +60,62 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x, w.to(x.dtype))
+
+
+def _dense(x: torch.Tensor, w: Any, b: Any) -> torch.Tensor:
     """flax nn.Dense in x's dtype: (x @ w) rounded, then + b."""
-    return torch.matmul(x, w.to(x.dtype)) + b.to(x.dtype)
+    return tp.matmul(x, w, _mm) + tp.full(b).to(x.dtype)
 
 
-def _layer_norm(x: torch.Tensor, scale: torch.Tensor,
-                bias: torch.Tensor) -> torch.Tensor:
+def _layer_norm(x: torch.Tensor, scale: Any, bias: Any) -> torch.Tensor:
     """flax nn.LayerNorm: float32 statistics, result cast to x's dtype."""
-    return F.layer_norm(x.float(), (x.shape[-1],), scale, bias,
-                        eps=LN_EPS).to(x.dtype)
+    return F.layer_norm(x.float(), (x.shape[-1],), tp.full(scale),
+                        tp.full(bias), eps=LN_EPS).to(x.dtype)
+
+
+def _rows(table: Any, ids: torch.Tensor) -> torch.Tensor:
+    """table[ids] for a tensor or a sharded table."""
+    if isinstance(table, tp.Sharded):
+        return tp.take_rows(table, ids, lambda t, i: t[i])
+    return table[ids]
+
+
+class _View:
+    """A parameter map's leaves under ``prefix`` as attributes, in place
+    of a module's own parameters."""
+
+    def __init__(self, params: Mapping[str, Any], prefix: str = ""):
+        self._params, self._prefix = params, prefix
+
+    def __getattr__(self, name: str) -> Any:
+        return self._params[self._prefix + name]
+
+
+def _block(p: Any, heads: int, x: torch.Tensor,
+           mask: torch.Tensor) -> torch.Tensor:
+    """`TransformerLayer`'s math over the weights of ``p`` (the module,
+    or a `_View` of a parameter map)."""
+    b, l, h = x.shape
+    hd = h // heads
+    dt = x.dtype
+    y = _layer_norm(x, p.ln1_scale, p.ln1_bias)
+    q, k, v = _dense(y, p.qkv_w, p.qkv_b).split(h, dim=-1)
+    q = q.reshape(b, l, heads, hd).transpose(1, 2)
+    k = k.reshape(b, l, heads, hd).transpose(1, 2)
+    v = v.reshape(b, l, heads, hd).transpose(1, 2)
+    # flax: query / sqrt(depth).astype(dtype), before the product
+    q = q / torch.tensor(math.sqrt(hd), dtype=torch.float32).to(dt)
+    logits = torch.matmul(q, k.transpose(-1, -2))       # (B, h, L, L)
+    logits = logits.masked_fill(~mask[:, None, None, :],
+                                torch.finfo(dt).min)
+    w = torch.softmax(logits, dim=-1).to(dt)
+    att = torch.matmul(w, v).transpose(1, 2).reshape(b, l, h)
+    x = x + _dense(att, p.out_w, p.out_b)
+    y = _layer_norm(x, p.ln2_scale, p.ln2_bias)
+    y = F.gelu(_dense(y, p.mlp1_w, p.mlp1_b), approximate="tanh")
+    return x + _dense(y, p.mlp2_w, p.mlp2_b)
 
 
 class TransformerLayer(nn.Module):
@@ -86,25 +141,7 @@ class TransformerLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """x (B, L, hidden) in the compute dtype; mask (B, L) bool."""
-        b, l, h = x.shape
-        hd = h // self.heads
-        dt = x.dtype
-        y = _layer_norm(x, self.ln1_scale, self.ln1_bias)
-        q, k, v = _dense(y, self.qkv_w, self.qkv_b).split(h, dim=-1)
-        q = q.reshape(b, l, self.heads, hd).transpose(1, 2)
-        k = k.reshape(b, l, self.heads, hd).transpose(1, 2)
-        v = v.reshape(b, l, self.heads, hd).transpose(1, 2)
-        # flax: query / sqrt(depth).astype(dtype), before the product
-        q = q / torch.tensor(math.sqrt(hd), dtype=torch.float32).to(dt)
-        logits = torch.matmul(q, k.transpose(-1, -2))       # (B, h, L, L)
-        logits = logits.masked_fill(~mask[:, None, None, :],
-                                    torch.finfo(dt).min)
-        w = torch.softmax(logits, dim=-1).to(dt)
-        att = torch.matmul(w, v).transpose(1, 2).reshape(b, l, h)
-        x = x + _dense(att, self.out_w, self.out_b)
-        y = _layer_norm(x, self.ln2_scale, self.ln2_bias)
-        y = F.gelu(_dense(y, self.mlp1_w, self.mlp1_b), approximate="tanh")
-        return x + _dense(y, self.mlp2_w, self.mlp2_b)
+        return _block(self, self.heads, x, mask)
 
 
 class TextEncoder(nn.Module):
@@ -126,28 +163,38 @@ class TextEncoder(nn.Module):
         self.proj_w, self.proj_b = p(c.hidden_dim, c.out_dim), p(c.out_dim)
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor, *,
-                return_tokens: bool = False):
+                return_tokens: bool = False, params=None):
         """ids (B, L) int, mask (B, L) bool -> pooled (B, out_dim) f32 unit
         vectors (zero for a row with no valid token), and with
-        ``return_tokens`` also the (B, L, out_dim) f32 token outputs."""
+        ``return_tokens`` also the (B, L, out_dim) f32 token outputs.
+        ``params`` (name -> tensor or sharded leaf) replaces the
+        module's own weights."""
         ids, mask = ids.long(), mask.bool()
-        return self._tower(self._embed_text(ids), mask, return_tokens)
+        return self._tower(self._embed_text(ids, params), mask,
+                           return_tokens, params)
 
-    def _embed_text(self, ids: torch.Tensor) -> torch.Tensor:
+    def _embed_text(self, ids: torch.Tensor, params=None) -> torch.Tensor:
         """Token plus position embeddings, (B, L, hidden) in the compute
         dtype."""
         dt = self.dtype
-        return self.token_embed[ids].to(dt) + \
-            self.pos_embed[:ids.shape[1]].to(dt)[None]
+        p = self if params is None else _View(params)
+        if isinstance(p.pos_embed, tp.Sharded):
+            pos = _rows(p.pos_embed, torch.arange(ids.shape[1],
+                                                  device=ids.device))
+        else:
+            pos = p.pos_embed[:ids.shape[1]]
+        return _rows(p.token_embed, ids).to(dt) + pos.to(dt)[None]
 
     def _tower(self, x: torch.Tensor, mask: torch.Tensor,
-               return_tokens: bool):
+               return_tokens: bool, params=None):
         """The layer stack, final norm, projection and masked mean pool
         over ``mask`` (B, L) of the sequence ``x`` (B, L, hidden)."""
-        for layer in self.layers:
-            x = layer(x, mask)
-        x = _layer_norm(x, self.final_ln_scale, self.final_ln_bias)
-        tokens = _dense(x, self.proj_w, self.proj_b)
+        for i, layer in enumerate(self.layers):
+            lp = layer if params is None else _View(params, f"layers.{i}.")
+            x = _block(lp, layer.heads, x, mask)
+        p = self if params is None else _View(params)
+        x = _layer_norm(x, p.final_ln_scale, p.final_ln_bias)
+        tokens = _dense(x, p.proj_w, p.proj_b)
         # mean pooling over valid tokens (parity: huggingface.py:165-170)
         m = mask[..., None].float()
         pooled = (tokens.float() * m).sum(dim=1) / torch.clamp(
@@ -170,11 +217,14 @@ class TextEncoder(nn.Module):
         """The reference's ``model.apply(params, ids, mask, ...)`` call
         shape (the multimodal tower's also takes images, image_mask,
         audio, audio_mask), without autograd. The module owns its
-        weights, so ``params`` is not read here;
-        `FusedSearcher.bind_encoder` checks it once with `owns`."""
-        del params
+        weights, so plain ``params`` are not read here
+        (`FusedSearcher.bind_encoder` checks them once with `owns`); a
+        sharded map (parallel/tp.py::shard_params) runs in their
+        place."""
+        sharded = params if tp.is_sharded(params) else None
         with torch.no_grad():
-            return self(*inputs, return_tokens=return_tokens)
+            return self(*inputs, return_tokens=return_tokens,
+                        params=sharded)
 
 
 def _patches(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -215,14 +265,16 @@ class MultimodalEncoder(TextEncoder):
         self.audio_patch_pos = param(
             (self.audio_frames // p) * (self.audio_mels // p), h)
 
-    def _embed_patches(self, x: torch.Tensor, w: torch.Tensor,
-                       b: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    def _embed_patches(self, x: torch.Tensor, w: Any, b: Any,
+                       pos: Any) -> torch.Tensor:
         """flax nn.Conv(hidden, (p, p), strides=(p, p), dtype) on
         (B, H, W, C) plus the position table, (B, P, hidden)."""
         patches = _dense(_patches(x.to(self.dtype), self.patch_size), w, b)
         if patches.shape[1] != pos.shape[0]:
             raise ValueError(f"{patches.shape[1]} patches, but the position "
                              f"table holds {pos.shape[0]}")
+        if isinstance(pos, tp.Sharded):
+            pos = _rows(pos, torch.arange(pos.shape[0], device=x.device))
         return patches + pos.to(self.dtype)[None]
 
     def forward(self, ids: torch.Tensor, mask: torch.Tensor,
@@ -230,21 +282,23 @@ class MultimodalEncoder(TextEncoder):
                 image_mask: Optional[torch.Tensor] = None,
                 audio: Optional[torch.Tensor] = None,
                 audio_mask: Optional[torch.Tensor] = None, *,
-                return_tokens: bool = False):
+                return_tokens: bool = False, params=None):
         """ids, mask (B, L); images (B, 224, 224, 3) float; audio
         (B, 256, 128) log-mel; image_mask, audio_mask (B,) bool -> pooled
         (B, out_dim) f32 unit vectors, and with ``return_tokens`` the
-        (B, L_audio + L_image + L, out_dim) f32 token outputs."""
+        (B, L_audio + L_image + L, out_dim) f32 token outputs.
+        ``params`` replaces the module's own weights."""
         ids, mask = ids.long(), mask.bool()
-        x = self._embed_text(ids)
+        p = self if params is None else _View(params)
+        x = self._embed_text(ids, params)
         if images is not None:
             x, mask = self._prepend(x, mask, image_mask, self._embed_patches(
-                images, self.patch_w, self.patch_b, self.patch_pos))
+                images, p.patch_w, p.patch_b, p.patch_pos))
         if audio is not None:
             x, mask = self._prepend(x, mask, audio_mask, self._embed_patches(
-                audio[..., None], self.audio_patch_w, self.audio_patch_b,
-                self.audio_patch_pos))
-        return self._tower(x, mask, return_tokens)
+                audio[..., None], p.audio_patch_w, p.audio_patch_b,
+                p.audio_patch_pos))
+        return self._tower(x, mask, return_tokens, params)
 
     @staticmethod
     def _prepend(x, mask, media_mask, patches):

@@ -19,6 +19,13 @@ factors train, so the optimizer state is megabytes, not gigabytes.
 adapter at no extra cost; `lora_banks` stacks several for per-row
 serving through `decoder.forward(lora=...)`.
 
+Over a tree sharded by `parallel/tp.py::shard_params`, `lora_init`
+shards the factors it draws by the same rule (``a`` on its input
+width, ``b`` on its output width), `lora_adapters` and `lora_apply`
+keep the sharded leaves, and `make_lora_train_step` is the DP x TP step
+(models/train.py). `lora_banks` and `save_adapters` gather sharded
+factors to the merge device: serving banks are whole.
+
 Random draws come from an explicit `torch.Generator` (the reference's
 PRNG key): `lora_init` draws the same law as the reference, not the same
 numbers. The ``save_adapters`` npz is the reference's format ("{t}.a",
@@ -33,6 +40,7 @@ from typing import Any, Callable, Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel import tp
 from ..utils import DeviceLike, resolve_device
 from .decoder import DecoderConfig
 from .train import TrainState, _apply_update, lm_loss
@@ -56,7 +64,9 @@ def lora_init(generator: torch.Generator, params: Dict[str, Any], *,
 
     a ~ N(0, 1/in) in bf16 from ``generator`` (which must live on the
     params' device), b = 0: the wrapped model computes EXACTLY the base
-    model at init. s = alpha / r in an (L, 1, 1) float32 leaf."""
+    model at init. s = alpha / r in an (L, 1, 1) float32 leaf. Over a
+    sharded base the factors are drawn on the merge device and sharded on
+    the base's mesh."""
     out = dict(params)
     for name in targets:
         w = params[name]
@@ -68,7 +78,10 @@ def lora_init(generator: torch.Generator, params: Dict[str, Any], *,
              / np.sqrt(fan_in)).to(torch.bfloat16)
         b = torch.zeros((L, r, fan_out), dtype=torch.bfloat16, device=dev)
         s = torch.full((L, 1, 1), alpha / r, dtype=torch.float32, device=dev)
-        out[name] = {"w": w, "a": a, "b": b, "s": s}
+        factors = {"a": a, "b": b, "s": s}
+        if isinstance(leaf, tp.Sharded):
+            factors = tp.shard_params(leaf.mesh, factors)
+        out[name] = {"w": w, **factors}
     return out
 
 
@@ -135,6 +148,7 @@ def lora_banks(adapter_trees: Sequence[Dict[str, Any]], *,
     zero-pad: zero columns are exact no-ops) and index 0 is the ZERO
     adapter, the base model. Each adapter's scale (or the alpha / r
     fallback) folds into its "b" factors, so serving applies x @ a @ b."""
+    adapter_trees = [tp.gather_params(tree) for tree in adapter_trees]
     names = sorted({t for tree in adapter_trees for t in tree})
     if not names:
         return {}
@@ -178,6 +192,8 @@ def save_adapters(adapters: Dict[str, Any], path: str, *,
     """npz of the adapter factors alone, as float32 — the artifact a
     fine-tune ships. Pass the ``wrapped`` tree to embed each target's
     trained scale s, so a loader need not know the training alpha."""
+    adapters = tp.gather_params(adapters)
+    wrapped = None if wrapped is None else tp.gather_params(wrapped)
     flat = {}
     for name, ab in adapters.items():
         flat[f"{name}.a"] = ab["a"].detach().float().cpu().numpy()

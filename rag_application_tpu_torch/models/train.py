@@ -27,18 +27,30 @@ batch) -> (state, metrics)``, over eager autograd:
     ``lerp``, where optax sums one update and adds it; in float32 three
     steps agree to ~1e-7 relative (tests/test_torch_train.py).
   * The encoder step differentiates the tensors it is given through
-    ``torch.func.functional_call``: the served `TextEncoder` keeps its
-    own frozen parameters and its ``no_grad`` `apply`.
+    `TextEncoder.forward(..., params=)`, the module's math over a
+    parameter map: the served `TextEncoder` keeps its own frozen
+    parameters and its ``no_grad`` `apply`.
   * The LM step runs `decoder.forward` with a T-slot cache and
     ``remat`` checkpointing each layer (models/decoder.py).
+
+The DP x TP steps (`shard_train_setup`, `shard_lm_train_setup`, and
+`models/lora.py`'s step over a sharded tree) are these same step
+functions over a tree placed by `parallel/tp.py::shard_params`: params
+sharded over the mesh's ``model`` axis and replicated over ``data``.
+Each batch leaf splits over ``data`` and each data row runs its part of
+the forward on its own replica. The LM loss is the global masked mean
+(the rows' nll sums over their mask counts, not a mean of means); the
+encoder's in-batch negatives span the global batch (za and zb gathered
+for the (B, B) logits), as the reference's XLA program computes them.
+The gradients are summed across the rows (`tp.sum_replica_grads`) and
+every replica takes the same AdamW update, so the replicas stay
+bit-equal. The sharded encoder step takes the unsharded step's route,
+`TextEncoder.forward(..., params=)`, once a data row.
 
 Divergence: `save_train_state` / `load_train_state` write one
 ``torch.save`` file (params, the optimizer's ``state_dict`` and the
 step) where the reference writes an orbax checkpoint directory; the two
-formats do not cross. `shard_train_setup` / `shard_lm_train_setup` need
-parameter sharding over the mesh's model axis (the DP x TP step;
-`parallel/mesh.py::param_shardings` is its rule), which is not ported
-yet.
+formats do not cross. The pair takes unsharded states only.
 
 No JAX function of this module reaches a Pallas kernel (encoder
 training is XLA ops, and the LM forward runs with T > 1, off the
@@ -49,12 +61,14 @@ through plain torch ops is the port.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Mapping, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import tp
+from ..parallel.mesh import batch_sharding
 from ..utils import DeviceLike
 
 
@@ -63,18 +77,6 @@ class TrainState:
     params: Any     # tree (nested dicts) of trainable tensors
     opt_state: Any  # the optimizer over those tensors (`AdamW.init`)
     step: int
-
-
-def _leaves(tree: Any) -> List[torch.Tensor]:
-    if isinstance(tree, Mapping):
-        return [t for k in tree for t in _leaves(tree[k])]
-    return [tree]
-
-
-def _map(fn: Callable, tree: Any) -> Any:
-    if isinstance(tree, Mapping):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 class AdamW:
@@ -88,7 +90,7 @@ class AdamW:
         self.betas, self.eps = (b1, b2), eps
 
     def init(self, params: Any) -> torch.optim.AdamW:
-        leaves = _leaves(params)
+        leaves = tp.tensors(params)
         if not all(t.requires_grad and t.is_leaf for t in leaves):
             raise ValueError("AdamW.init needs leaf tensors that require "
                              "grad (see init_train_state)")
@@ -104,16 +106,19 @@ def make_optimizer(lr: float = 1e-4, weight_decay: float = 0.01) -> AdamW:
 def init_train_state(params: Any, optimizer: AdamW) -> TrainState:
     """A fresh `TrainState` over trainable copies of ``params`` (the
     tensors given are left as they are)."""
-    own = _map(lambda t: t.detach().clone().requires_grad_(True), params)
+    own = tp.map_tensors(
+        lambda t: t.detach().clone().requires_grad_(True), params)
     return TrainState(params=own, opt_state=optimizer.init(own), step=0)
 
 
 def _apply_update(state: TrainState, loss: torch.Tensor) -> None:
     """One optimizer step on ``loss``; the gradients stay in ``.grad``
-    until the next step."""
+    until the next step. Sharded params sum their gradients across the
+    data replicas first."""
     opt = state.opt_state
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    tp.sum_replica_grads(state.params)
     opt.step()
 
 
@@ -165,18 +170,31 @@ def make_train_step(model, optimizer, *, temperature: float = 0.05,
     mask_b), tensors or numpy: two views of each pair. Non-empty
     ``matryoshka_dims`` switches to the MRL objective. Metrics are
     0-d tensors: loss and the argmax accuracy of the (B, B) match."""
-    from torch.func import functional_call
+    def embed(params, batch):
+        """Each data row embeds its part of the batch on its replica
+        (one row over an unsharded map), through the module's math over
+        ``params``; za and zb are gathered to the global batch on the
+        first device."""
+        mesh = tp.mesh_of(params)
+        keys = ("ids_a", "mask_a", "ids_b", "mask_b")
+        if mesh is None:
+            dev = next(iter(params.values())).device
+            parts, devs = {k: [batch[k]] for k in keys}, [dev]
+        else:
+            dev = mesh.first
+            parts = {k: tp.split_batch(mesh, batch[k]) for k in keys}
+            devs = list(mesh.devices[:, 0])
+        za, zb = [], []
+        for r, (p, d) in enumerate(zip(tp.rows(params), devs)):
+            for side, out in (("a", za), ("b", zb)):
+                out.append(model(
+                    _batch_tensor(parts["ids_" + side][r], d, torch.long),
+                    _batch_tensor(parts["mask_" + side][r], d, torch.bool),
+                    params=p))
+        return tp.gather_batch(za, dev), tp.gather_batch(zb, dev), dev
 
     def loss_fn(params, batch):
-        dev = next(iter(params.values())).device
-
-        def embed(ids, mask):
-            return functional_call(model, params, (
-                _batch_tensor(ids, dev, torch.long),
-                _batch_tensor(mask, dev, torch.bool)))
-
-        za = embed(batch["ids_a"], batch["mask_a"])
-        zb = embed(batch["ids_b"], batch["mask_b"])
+        za, zb, dev = embed(params, batch)
         if matryoshka_dims:
             loss = matryoshka_contrastive_loss(za, zb, matryoshka_dims,
                                                temperature)
@@ -202,12 +220,42 @@ def lm_loss(params: Dict[str, Any], cfg, batch, *, remat: bool
     batch (ids (B, T) int, mask (B, T) bool), and the argmax accuracy,
     both over the masked targets — `make_lm_train_step`'s loss and the
     LoRA step's. The forward writes a T-slot cache (positions [0, T) in
-    one slice) and projects every position."""
-    from .decoder import _dtype, _params_device, _project, forward
+    one slice) and projects every position. Over a sharded tree with
+    several data rows, each row runs its part of the batch and the
+    means are global: the rows' sums over their mask counts."""
+    from .decoder import _params_device
 
-    dev = _params_device(params)
-    ids = _batch_tensor(batch["ids"], dev, torch.int32)
-    mask = _batch_tensor(batch["mask"], dev, torch.bool)
+    per_row = tp.rows(params)
+    if len(per_row) == 1:
+        dev = _params_device(params)
+        nll, count, hits = _lm_sums(
+            params, cfg, _batch_tensor(batch["ids"], dev, torch.int32),
+            _batch_tensor(batch["mask"], dev, torch.bool), remat)
+    else:
+        mesh = tp.mesh_of(params)
+        ids = tp.split_batch(mesh, batch["ids"])
+        mask = tp.split_batch(mesh, batch["mask"])
+        sums = []
+        for r, p in enumerate(per_row):
+            d = mesh.devices[r, 0]
+            sums.append(_lm_sums(p, cfg, _batch_tensor(ids[r], d, torch.int32),
+                                 _batch_tensor(mask[r], d, torch.bool), remat))
+        nll, count, hits = (tp.reduce_sum([s[i] for s in sums], mesh.first)
+                            for i in range(3))
+    denom = torch.clamp(count, min=1.0)
+    loss = nll / denom
+    with torch.no_grad():
+        acc = hits / denom
+    return loss, acc
+
+
+def _lm_sums(params: Dict[str, Any], cfg, ids: torch.Tensor,
+             mask: torch.Tensor, remat: bool
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One batch's masked nll sum, mask count and argmax hits."""
+    from .decoder import _dtype, _project, forward
+
+    dev = ids.device
     B, T = ids.shape
     z = lambda: torch.zeros((cfg.num_layers, B, T, cfg.kv_heads,  # noqa: E731
                              cfg.head_dim), dtype=_dtype(cfg), device=dev)
@@ -219,11 +267,9 @@ def lm_loss(params: Dict[str, Any], cfg, batch, *, remat: bool
     lp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
     m = mask[:, 1:].float()
-    denom = torch.clamp(m.sum(), min=1.0)
-    loss = torch.sum(nll * m) / denom
     with torch.no_grad():
-        acc = torch.sum((torch.argmax(logits, -1) == targets) * m) / denom
-    return loss, acc
+        hits = torch.sum((torch.argmax(logits, -1) == targets) * m)
+    return torch.sum(nll * m), m.sum(), hits
 
 
 def make_lm_train_step(cfg, optimizer, *, remat: bool = True) -> Callable:
@@ -246,17 +292,21 @@ def make_lm_train_step(cfg, optimizer, *, remat: bool = True) -> Callable:
 
 def shard_lm_train_setup(mesh, params, cfg, optimizer, *,
                          remat: bool = True):
-    """Needs parameter sharding (the DP x TP step), not ported yet."""
-    raise NotImplementedError(
-        "shard_lm_train_setup needs parameter sharding over the mesh's "
-        "model axis (the DP x TP step), which is not ported yet")
+    """Decoder-LM twin of `shard_train_setup`: params sharded over
+    ``model`` by `param_shardings`' rule and replicated over ``data``,
+    each batch leaf split over ``data``. Returns (state, step,
+    batch_sharding)."""
+    state = init_train_state(tp.shard_params(mesh, params), optimizer)
+    return (state, make_lm_train_step(cfg, optimizer, remat=remat),
+            batch_sharding(mesh))
 
 
 def save_train_state(state: TrainState, path: str) -> None:
     """One ``torch.save`` file of the params (detached, on their
     device), the optimizer's ``state_dict`` and the step. The reference
     writes an orbax checkpoint directory instead."""
-    torch.save({"params": _map(lambda t: t.detach(), state.params),
+    torch.save({"params": tp.map_tensors(lambda t: t.detach(),
+                                         state.params),
                 "opt_state": state.opt_state.state_dict(),
                 "step": int(state.step)}, path)
 
@@ -268,8 +318,9 @@ def load_train_state(path: str, optimizer: AdamW, template: TrainState,
     fresh ``optimizer.init`` over them that loads the saved moments."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
     dev = (torch.device(device) if device is not None
-           else _leaves(template.params)[0].device)
-    params = _map(lambda t: t.to(dev).requires_grad_(True), raw["params"])
+           else tp.tensors(template.params)[0].device)
+    params = tp.map_tensors(lambda t: t.to(dev).requires_grad_(True),
+                            raw["params"])
     opt = optimizer.init(params)
     opt.load_state_dict(raw["opt_state"])
     return TrainState(params=params, opt_state=opt, step=int(raw["step"]))
@@ -277,7 +328,12 @@ def load_train_state(path: str, optimizer: AdamW, template: TrainState,
 
 def shard_train_setup(mesh, enc, optimizer, *, temperature: float = 0.05,
                       matryoshka_dims: Tuple[int, ...] = ()):
-    """Needs parameter sharding (the DP x TP step), not ported yet."""
-    raise NotImplementedError(
-        "shard_train_setup needs parameter sharding over the mesh's "
-        "model axis (the DP x TP step), which is not ported yet")
+    """Place the encoder's parameters on the mesh (sharded over
+    ``model``, replicated over ``data``) with an optimizer over them,
+    and return (state, step, batch_sharding): the step takes whole
+    batch leaves (or lists of one part a data row) and splits each over
+    ``data``."""
+    state = init_train_state(tp.shard_params(mesh, enc.params), optimizer)
+    step = make_train_step(enc.model, optimizer, temperature=temperature,
+                           matryoshka_dims=matryoshka_dims)
+    return state, step, batch_sharding(mesh)

@@ -7,9 +7,9 @@ Port of `rag_application_tpu/parallel/mesh.py`. The reference's
   * corpus rows shard over the `data` axis (index + search; per-shard
     candidate lists merge with one top-k),
   * query batches shard over the `data` axis,
-  * encoder weights may shard over the `model` axis (tensor
-    parallelism; `param_shardings` is the rule, applied by the
-    parameter-sharding code that is not ported yet).
+  * encoder and decoder weights may shard over the `model` axis
+    (tensor parallelism; `param_shardings` is the rule, and
+    `parallel/tp.py::shard_params` applies it).
 
 The JAX package is single-controller: one process calls the sharded
 search, `shard_map` runs the body once per device and the caller gets

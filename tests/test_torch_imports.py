@@ -43,8 +43,8 @@ def test_port_imports_without_jax():
     # models.audio, ingest.flac), training and LoRA (models.train_data,
     # models.train, models.lora), the evals (evals.real_docs,
     # evals.multimodal) and corpus-axis sharding (parallel.mesh,
-    # parallel.sparse, parallel.search, parallel.kg, parallel.ivf), utils,
-    # config, state, ...
+    # parallel.sparse, parallel.search, parallel.kg, parallel.ivf), tensor
+    # parallelism (parallel.tp, parallel.dryrun), utils, config, state, ...
     assert len(mods) >= 105
     assert {f"rag_application_tpu_torch.{m}" for m in (
         "index.checkpoint", "search.batcher", "search.hybrid",
@@ -62,4 +62,5 @@ def test_port_imports_without_jax():
         "ingest.flac", "models.train_data", "models.train",
         "models.lora", "evals", "evals.real_docs", "evals.multimodal",
         "parallel", "parallel.mesh", "parallel.sparse", "parallel.search",
-        "parallel.kg", "parallel.ivf")} <= mods
+        "parallel.kg", "parallel.ivf", "parallel.tp",
+        "parallel.dryrun")} <= mods

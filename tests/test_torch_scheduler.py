@@ -12,8 +12,10 @@ equal. Sampled batchers draw from `torch.Generator`s, not `jax.random`:
 they are held to their seed, to validity and, for the first token, to
 the filtered law by Monte Carlo. Multi-LoRA rows (banks built by the
 port's `lora_banks`, held bit-equal to the reference's) must give the
-tokens of the JAX solo `generate` with their adapter merged. The
-TP-sharded case raises `NotImplementedError` until parallel/* is ported.
+tokens of the JAX solo `generate` with their adapter merged. Over
+parameters sharded by `parallel/tp.py::shard_params` the same batcher
+gives the same tokens (tests/test_torch_tp.py holds the sharded
+decoder to the JAX package's sharded one).
 """
 
 import asyncio
@@ -333,24 +335,29 @@ def test_prefix_cache_composes_with_speculation():
         assert toks == _solo(p, 10, 16), p
 
 
-def test_batcher_serves_tp_sharded_params(tmp_path):
-    """TP-sharded parameters (DTensors) wait for parallel/*: the batcher
-    refuses them by name instead of running an unported layout."""
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import Shard, distribute_tensor
+def test_batcher_serves_tp_sharded_params():
+    """Multi-device serving: the SAME batcher runs over TP-sharded params
+    (`tp.shard_params`, the megatron-style rule over the model axis of an
+    8-device CPU mesh) and gives token-identical output; the scheduler
+    never changes."""
+    from rag_application_tpu_torch.parallel import tp
+    from rag_application_tpu_torch.parallel.mesh import make_mesh
 
-    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
-                            rank=0, world_size=1)
-    try:
-        mesh = init_device_mesh("cpu", (1,))
-        sharded = dict(tparams(CFG))
-        sharded["wq"] = distribute_tensor(sharded["wq"], mesh, [Shard(2)])
-        with pytest.raises(NotImplementedError, match="parallel"):
-            ContinuousBatcher(sharded, tcfg(CFG), slots=2, prompt_pad=16,
+    mesh = make_mesh(8, model=2, devices=[torch.device("cpu")] * 8)
+    sharded = tp.shard_params(mesh, tparams(CFG))
+    rng = np.random.default_rng(10)
+    prompts = _prompts(3, rng)
+    news = [8, 11, 6]
+
+    async def run(params):
+        b = ContinuousBatcher(params, tcfg(CFG), slots=2, prompt_pad=16,
                               horizon=48, chunk=4)
-    finally:
-        dist.destroy_process_group()
+        return await asyncio.gather(*[
+            b.submit(p, max_new=n) for p, n in zip(prompts, news)])
+
+    base = asyncio.run(run(tparams(CFG)))
+    shard = asyncio.run(run(sharded))
+    assert shard == base
 
 
 def test_adaptive_speculation_throttles_and_stays_exact():

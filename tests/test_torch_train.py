@@ -286,10 +286,3 @@ def test_kv_quant_config_cannot_train():
                                  opt)
     with pytest.raises(ValueError, match="kv_quant"):
         ttrain.make_lm_train_step(tcfg, opt)(st, lm_batch(1))
-
-
-def test_sharded_setups_raise():
-    with pytest.raises(NotImplementedError, match="parameter sharding"):
-        ttrain.shard_train_setup(None, None, ttrain.make_optimizer())
-    with pytest.raises(NotImplementedError, match="parameter sharding"):
-        ttrain.shard_lm_train_setup(None, {}, DCFG, ttrain.make_optimizer())
