@@ -15,16 +15,20 @@
    8192-query batch) — the scan on all reduce paths with/without mask,
    strips 1/4, strip_outputs off/on, ragged tails, and off-path shapes
    (int8 d 100 to 2720 and bf16 d 72 to 2176 at both query-tile sizes,
-   sliced tables, Q 1037; an f32 corpus and odd-d / odd-stride bf16 on
-   the CUDA-core kernel), each case asserting the kernel it took; the
+   sliced tables, Q 1037; on the split-TF32 kernel, f32 corpora at d 100
+   to 768, odd-d / odd-stride bf16, f32 queries on the cascade's bf16
+   prefix, bf16 queries on an f32 corpus and rows whose elements span
+   2^-8 to 2^8), each case asserting the kernel it took; the
    BM25 match, read by candidate id (`bm25_match_rows`), bit-equal on the
    batch's real candidates, rows of sentinels only, pool 24, T 5 with
    invalid slots and L 8, and on gathered rows (`bm25_match_scores`).
    Then kernel, plain and library times at the full main-path shapes,
    beside each kernel's bound: the int8 scan and the cascade's bf16
-   prefix scan, each also at the tokens wire's shape, the CUDA-core
-   kernel at the cascade's shape and on an f32 corpus, and BM25's stage
-   2 before (the gather of the rows alone) and after.
+   prefix scan, each also at the tokens wire's shape, the split-TF32
+   kernel on an f32 corpus and at the cascade's shape with f32 queries
+   (beside `torch.matmul` in full f32, its tensor-core bound and the
+   f32 CUDA-core bound), and BM25's stage 2 before (the gather of the
+   rows alone) and after.
 5. Main path: FusedSearcher.search on batches of 8192 noisy corpus rows
    plus their token texts, with bench.py's funnel — 3 timed batches
    without the matryoshka cascade (the bench's serving setting), one
@@ -423,6 +427,7 @@ N_EVAL = 128
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1.979e15
 BF16_OPS_S = 0.989e15
+TF32_OPS_S = 0.495e15
 F32_OPS_S = 67e12
 
 # TinyLlama/TinyLlama-1.1B-Chat-v1.0 config.json (published widths), in
@@ -437,7 +442,10 @@ ATTN_MAIN = (GEN_B, GEN_T + GEN_NEW, 4, 8, 64)
 # bf16 at different points over 22 layers
 GEN_LOGIT_ATOL = 0.25
 CHAT_PROMPT = 512     # tokens: a power of two, so chat and stream share
-CHAT_NEW = 512        # one cache layout and S = 1024 (bitwise-equal paths)
+CHAT_NEW = 512        # one cache layout and S = 1024 (bitwise-equal paths);
+                      # [gen-time] times the chat's attention at that S
+CHAT_RUN_NEW = 256    # the chat's and the stream's new tokens (cut from
+                      # CHAT_NEW for time: a full run took 1,098-1,198 s)
 
 # the write path: Config()/EncoderConfig() defaults, Embedder(max_len=128,
 # batch_size=64) as the README's quick start builds it
@@ -596,8 +604,9 @@ FT_STEPS, FT_LR = 2, 1e-4  # full fine-tune, bf16 weights
 # mesh of cuda:0 (the grid dryrun_multichip(4) builds) and a 1 x 4 one
 TP_MODELS = (2, 4)
 # [tp]'s depths were cut from [gen-main]'s and [batch]'s 128 new tokens
-# for time: a full run took up to 1,308 s with them at 64 and 128
-TP_NEW = 32             # [tp-gen]: new tokens at [gen-main]'s batch and prompt
+# for time: a full run took up to 1,308 s with them at 64 and 128, and
+# 1,198 s with [tp-gen] at 32 on a slow host ([tp] 164.2 s of it)
+TP_NEW = 16             # [tp-gen]: new tokens at [gen-main]'s batch and prompt
 TP_LOGIT_ATOL = GEN_LOGIT_ATOL  # TP vs one device: bf16 sums in other orders
 TP_ATTN_CHECKS = 88     # decode_attn launches held to plain (4 steps x 22)
 TP_SPEC_K = 2           # [tp-batch]'s speculative batcher, as the dry run's
@@ -690,14 +699,17 @@ def reset_scan_counts(ft) -> None:
 
 
 def scan_counts(ft) -> dict:
-    """The scan wrapper's launches by entry of the `kernels` line: the
-    bf16 tensor-core kernel on its own; `fused_scan` is the int8 kernel
-    and the CUDA-core kernel, both behind `csrc/fused_scan.cu`'s entry."""
+    """The scan wrapper's launches by entry of the `kernels` line, for the
+    kernels a path launches: `fused_scan` is the int8 kernel behind
+    `csrc/fused_scan.cu`'s entry, `fused_scan_bf16` the bf16 one. The
+    split-TF32 kernel (`fused_scan_tf32`) has an entry of its own and no
+    path launches it: each path's guard fails on its count in
+    `route_launches`."""
     by = ft.route_launches
     if sum(by.values()) != ft.scan_sheet.launches:
         raise AssertionError(f"scan launches by kernel {by} do not add up to "
                              f"{ft.scan_sheet.launches}")
-    return {"fused_scan": by["fused_scan_int8"] + by["fused_scan"],
+    return {"fused_scan": by["fused_scan_int8"],
             "fused_scan_bf16": by["fused_scan_bf16"]}
 
 
@@ -818,6 +830,7 @@ def check_scan(dense, cap, q):
 
     from rag_application_tpu_torch.ops import fused_topk as ft
     from rag_application_tpu_torch.ops.quant import quantize_int8
+    from rag_application_tpu_torch.utils import full_f32_matmul
 
     dev = dense.device
     qn = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
@@ -849,6 +862,10 @@ def check_scan(dense, cap, q):
         ("capacity int8 + recip", cap.int8, q8, cap.int8_recip, BLOCK),
         ("bf16 prefix 128 + inv_norms", dense.vecs[:, :128], qb[:, :128],
          dense.inv_norms[:, 0].contiguous(), BLOCK),
+        # the same prefix with the f32 queries (not rounded to bf16): the
+        # split-TF32 kernel, two TF32 products a term
+        ("bf16 prefix 128 + inv_norms, f32 queries", dense.vecs[:, :128],
+         qn[:, :128].contiguous(), dense.inv_norms[:, 0].contiguous(), BLOCK),
     ]
     # f32 path: bf16 x bf16 products are exact in f32, so kernel and plain
     # differ only in the order of the f32 sums. Each side is within
@@ -856,14 +873,18 @@ def check_scan(dense, cap, q):
     # (one rounding of 2^-24 per term added; the tensor core adds 16 exact
     # products per accumulation step, so even a truncating step of 2^-23
     # leaves its side at (d / 16) * 2^-23 < d * 2^-24), the two within
-    # twice that
+    # twice that. With f32 queries the split-TF32 kernel adds 8 products a
+    # step, two a term (d / 4 steps: (d / 2) * 2^-24), and drops at most
+    # 2^-23 of each |a_i b_i| in the split, at most 2^-23 for unit rows:
+    # its side stays within d * 2^-24 too
     f32_atol = 2 * 128 * 2.0 ** -24
     for label, corpus, qs, inv, block in setups:
         rows = min(corpus.shape[0], CHECK_BLOCKS * BLOCK)
         c = corpus[:rows]
         iv = inv[:rows] if inv is not None else None
         want = "fused_scan_int8" if c.dtype == torch.int8 \
-            else "fused_scan_bf16"
+            else "fused_scan_bf16" if qs.dtype == torch.bfloat16 \
+            else "fused_scan_tf32"
         for masked in (False, True):
             mask = (torch.rand(rows, generator=gen, device=dev) > 0.2
                     if masked else None)
@@ -899,11 +920,19 @@ def check_scan(dense, cap, q):
     # few thread blocks for the card at 128 queries a tile, then at 64: 64-
     # and 32-query tiles with the A fragments in registers); d 256 and 768
     # are 2 and 6 chunks a row group against the resident query tile, d
-    # 1280 (64-query tiles) and 2176 (32-query tiles) are past it. An f32
-    # corpus, and bf16 with an odd d or an odd row stride, which cp.async
-    # cannot copy, hold the CUDA-core kernel.
+    # 1280 (64-query tiles) and 2176 (32-query tiles) are past it. The
+    # split-TF32 kernel: an f32 corpus at d 100 of a 116-wide table (16-byte
+    # copies), and bf16 with an odd d or an odd row stride, which cp.async
+    # cannot copy (ordinary loads); then
+    # f32 d 768 on 8 blocks (64-query tiles whose query chunks ride in the
+    # ring), d 101 of a 117-wide f32 table (rows off 16 bytes), bf16
+    # queries on an f32 corpus, and rows whose elements span 2^-8 to 2^8
+    # (an f32 corpus, and a bf16 one with f32 queries), held to the same
+    # f32 rule scaled by the rows: 2 d 2^-24 max sum |a_i| |b_i| inv.
+    # Columns: corpus dtype, d, table width, reduce path, blocks, query
+    # dtype (None: the corpus's), element magnitudes spread.
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
-    for dtype, d, width, mode, blocks in (
+    for dtype, d, width, mode, blocks, *more in (
             (i8, 100, 100, "packed", 2),
             (i8, 100, 116, "packed_scaled", 2),
             (i8, 100, 116, "int8_general", 2),
@@ -922,36 +951,56 @@ def check_scan(dense, cap, q):
             (bf, 2176, 2192, "f32", 2),
             (f32, 100, 116, "f32", 2),
             (bf, 101, 101, "f32", 2),
-            (bf, 100, 117, "f32", 2)):
+            (bf, 100, 117, "f32", 2),
+            (f32, 768, 768, "f32", 8),
+            (f32, 101, 117, "f32", 2),
+            (f32, 128, 128, "f32", 2, bf),
+            (f32, 768, 768, "f32", 2, None, True),
+            (bf, 128, 128, "f32", 8, f32, True)):
+        qdtype, spread = (more + [None, False])[:2]
         n = blocks * 4096
         x = torch.randn((n, width), generator=gen, device=dev)
         x = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
         qs = x[:1037, :d] + 0.05 * torch.randn((1037, d), generator=gen,
                                                device=dev)
+        if spread:  # each element times 2^u, u uniform in [-8, 8)
+            x = x * torch.exp2(16 * torch.rand(x.shape, generator=gen,
+                                               device=dev) - 8)
+            qs = qs * torch.exp2(16 * torch.rand(qs.shape, generator=gen,
+                                                 device=dev) - 8)
         if dtype == i8:
             c, qs = quantize_int8(x)[:, :d], quantize_int8(qs)
             iv = torch.rand(n, generator=gen, device=dev) + 0.5 \
                 if mode == "packed_scaled" else None
             want = "fused_scan_int8"
         else:
-            qs = qs / torch.linalg.vector_norm(qs, dim=-1, keepdim=True)
-            c, qs = x.to(dtype)[:, :d], qs.to(dtype)
+            if not spread:
+                qs = qs / torch.linalg.vector_norm(qs, dim=-1, keepdim=True)
+            c, qs = x.to(dtype)[:, :d], qs.to(qdtype or dtype)
             iv = torch.rand(n, generator=gen, device=dev) + 0.5
-            want = "fused_scan_bf16" if dtype == bf and d % 2 == 0 \
-                and width % 2 == 0 else "fused_scan"
+            want = "fused_scan_bf16" if dtype == bf and qs.dtype == bf \
+                and d % 2 == 0 and width % 2 == 0 else "fused_scan_tf32"
         mask = torch.rand(n, generator=gen, device=dev) > 0.2
         kv, ki, pv, pi, err = both(
             want, c, qs, iv, mask, valid_n=n - 192, block_rows=4096,
             mode=mode, strips=2, strip_outputs=True)
-        # unit rows, inv in [0.5, 1.5): the f32 bound above, scaled by 1.5
+        # unit rows, inv in [0.5, 1.5): the f32 bound above, scaled by 1.5;
+        # spread rows: d 2^-24 a side of the largest sum |a_i| |b_i| inv
+        scale = 1.5
+        if spread:
+            with full_f32_matmul():
+                scale = ((qs.float().abs() @ c.float().abs().T)
+                         * iv).max().item()
+        atol = 2 * d * 2.0 ** -24 * scale
         ok = (torch.equal(kv.view(torch.int32), pv.view(torch.int32))
               and torch.equal(ki, pi)) if dtype == i8 else (
-            err <= 2 * d * 2.0 ** -24 * 1.5
-            and near_ties_ok(c, qs, iv, ki, pi, 4 * d * 2.0 ** -24 * 1.5))
-        cases.append(f"{dtype} d={d} ld={c.stride(0)} rows={n} Q=1037 "
+            err <= atol and near_ties_ok(c, qs, iv, ki, pi, 2 * atol))
+        cases.append(f"{dtype} x {qs.dtype} d={d} ld={c.stride(0)} rows={n} "
+                     f"Q=1037 "
                      f"valid_n={n - 192} mask strips=2 strip_outputs=True "
                      f"path={mode} [{want}]: max_abs_err {err:.3g} "
-                     f"id_mismatches {(ki != pi).sum().item()}")
+                     f"(atol {atol:.3g}) id_mismatches "
+                     f"{(ki != pi).sum().item()}")
         log("  " + cases[-1])
         if not ok:
             raise AssertionError(f"scan kernel != plain: {cases[-1]}")
@@ -1247,14 +1296,31 @@ def bf16_scan_bound(rows, queries, d, block):
                                        else "bytes")
 
 
+def tf32_scan_bounds(rows, queries, d, block, corpus_bytes, products):
+    """(tensor-core bound ms, what bounds it, f32 CUDA-core bound ms, bytes
+    ms) of the split-TF32 scan with per-row scales: corpus (``corpus_bytes``
+    an element), f32 queries and scales read once and the sheet written
+    once, against ``products`` TF32 products of 2 Q N d flops, or 2 Q N d
+    f32 flops on the CUDA cores."""
+    nbytes = rows * d * corpus_bytes + queries * d * 4 + rows * 4 \
+        + rows // block * queries * 128 * 8
+    t_bytes = nbytes / HBM_BYTES_S
+    flops = 2.0 * queries * rows * d
+    t_ops = products * flops / TF32_OPS_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes",
+            max(t_bytes, flops / F32_OPS_S) * 1e3, t_bytes * 1e3)
+
+
 def time_scan(dense, q):
     """The scan's kernel, plain and library ms, each beside its bound: the
     int8 packed scan at the main-path shape and at the tokens wire's; the
     cascade's bf16 prefix-128 scan on the bf16 tensor-core kernel at the
     main-path shape, the tokens wire's bf16 prefix-64 scan, and the
-    CUDA-core kernel at the main bf16 shape (f32 queries take it) and on
-    an f32 corpus beside `torch.matmul` in full f32. Returns the JSON
-    line's numbers for (the int8 scan, the bf16 scan)."""
+    split-TF32 kernel on an f32 corpus and at the cascade's shape with f32
+    queries, beside `torch.matmul` in full f32, its tensor-core bound and
+    the f32 CUDA-core bound. Returns the JSON line's numbers for (the int8
+    scan, the bf16 scan, the split-TF32 scan on the f32 corpus)."""
     import torch
 
     from rag_application_tpu_torch.ops import fused_topk as ft
@@ -1316,39 +1382,42 @@ def time_scan(dense, q):
         f"{bf_ms:.3f} ms, plain {bf_plain_ms:.3f} ms, torch.matmul "
         f"{bf_lib_ms:.3f} ms, bound {bf_bnd:.3f} ms ({bf_by}), kernel at "
         f"{bf_bnd / bf_ms:.1%} of the bound")
-    # the same scan with f32 queries (the same values) takes the CUDA-core
-    # kernel, which odd-aligned bf16 and f32 corpora still use
-    qf = qb.float()
-    before = dict(ft.route_launches)
-    core_ms = cuda_ms(lambda: ft.scan_sheet(cb, qf, inv0, None, **kw), reps=2)
-    if rose(ft.route_launches, before) != ["fused_scan"]:
-        raise AssertionError("f32 queries missed the CUDA-core kernel")
-    log(f"  fused_scan CUDA-core kernel, the same scan with f32 queries: "
-        f"kernel {core_ms:.3f} ms")
-    # the CUDA-core kernel on its own ground, an f32 corpus: the prefix
-    # rows cast to f32, beside torch.matmul in full f32 (TF32 off)
-    f_rows = 262144
-    cf = cb[:f_rows].float()
-    if_ = inv0[:f_rows]
-    before = dict(ft.route_launches)
-    f_ms = cuda_ms(lambda: ft.scan_sheet(cf, qf, if_, None, **kw), reps=2)
-    if rose(ft.route_launches, before) != ["fused_scan"]:
-        raise AssertionError("the f32 corpus missed the CUDA-core kernel")
-    f_plain_ms = cuda_ms(lambda: ft.scan_sheet_plain(cf, qf, if_, None,
-                                                     **kw), reps=1)
-    with full_f32_matmul():
-        f_lib_ms = cuda_ms(lambda: torch.matmul(qf, cf.t()), reps=2)
-    f_bytes = f_rows * 128 * 4 + BATCH * 128 * 4 + f_rows * 4 \
-        + f_rows // BLOCK * BATCH * 128 * 8
-    f_ops = 2.0 * BATCH * f_rows * 128
-    f_bnd = max(f_bytes / HBM_BYTES_S, f_ops / F32_OPS_S) * 1e3
-    log(f"  fused_scan CUDA-core kernel, f32 corpus ({f_rows}x128 f32, "
-        f"{BATCH} f32 queries, block {BLOCK}): kernel {f_ms:.3f} ms, plain "
-        f"{f_plain_ms:.3f} ms, torch.matmul (f32, TF32 off) {f_lib_ms:.3f} "
-        f"ms, bound {f_bnd:.3f} ms (operations: the f32 dot at "
-        f"{F32_OPS_S / 1e12:.0f} TFLOP/s; bytes alone "
-        f"{f_bytes / HBM_BYTES_S * 1e3:.4f} ms)")
-    del cf
+    # the split-TF32 kernel on its own ground, an f32 corpus (the prefix
+    # rows cast to f32, 262,144 of them) with f32 queries, then at the
+    # cascade's shape with the f32 queries; each beside torch.matmul in
+    # full f32 (TF32 off) on f32 copies of the operands
+    qf = qn[:, :128].contiguous()
+    tf32_t = None
+    for label, c, products in (
+            ("f32 corpus", cb[:262144].float(), 3),
+            ("bf16 prefix-128 corpus (cascade shape), f32 queries", cb, 2)):
+        rows = c.shape[0]
+        iv = inv0[:rows]
+        before = dict(ft.route_launches)
+        t_ms = cuda_ms(lambda: ft.scan_sheet(c, qf, iv, None, **kw), reps=5)
+        if rose(ft.route_launches, before) != ["fused_scan_tf32"]:
+            raise AssertionError(f"the {label} scan missed the split-TF32 "
+                                 f"kernel")
+        t_plain_ms = cuda_ms(lambda: ft.scan_sheet_plain(c, qf, iv, None,
+                                                         **kw), reps=1)
+        cf = c.float()
+        with full_f32_matmul():
+            t_lib_ms = cuda_ms(lambda: torch.matmul(qf, cf.t()), reps=2)
+        del cf
+        torch.cuda.empty_cache()
+        bnd, by, core_bnd, bytes_ms = tf32_scan_bounds(
+            rows, BATCH, 128, BLOCK, c.element_size(), products)
+        log(f"  fused_scan_tf32, {label} ({rows}x128 {c.dtype}, {BATCH} f32 "
+            f"queries, block {BLOCK}, {products} TF32 products a term): "
+            f"kernel {t_ms:.3f} ms, plain {t_plain_ms:.3f} ms, torch.matmul "
+            f"(f32, TF32 off) {t_lib_ms:.3f} ms, bound {bnd:.3f} ms ({by}: "
+            f"{products} x 2QNd at {TF32_OPS_S / 1e12:.0f} TFLOP/s TF32; "
+            f"bytes alone {bytes_ms:.4f} ms), f32 CUDA-core bound "
+            f"{core_bnd:.3f} ms (2QNd at {F32_OPS_S / 1e12:.0f} TFLOP/s), "
+            f"kernel at {bnd / t_ms:.1%} of the bound")
+        if tf32_t is None:
+            tf32_t = (t_ms, t_plain_ms, t_lib_ms, bnd, by)
+    del c
     torch.cuda.empty_cache()
 
     # the tokens wire's bf16 scan: prefix 64 (128 columns loaded, the query
@@ -1367,7 +1436,7 @@ def time_scan(dense, q):
         f"{tokb_bnd:.4f} ms ({tokb_by})")
     torch.cuda.empty_cache()
     return ((scan_ms, scan_plain_ms, scan_lib_ms, scan_bnd, scan_by),
-            (bf_ms, bf_plain_ms, bf_lib_ms, bf_bnd, bf_by))
+            (bf_ms, bf_plain_ms, bf_lib_ms, bf_bnd, bf_by), tf32_t)
 
 
 def kernel_times(fn, reps: int) -> dict:
@@ -1485,8 +1554,9 @@ def time_stage2(label, args):
 
 def time_kernels(dense, q, bm25_args):
     """Kernel, plain and library ms at the full main-path shapes."""
-    scan_t, scan_bf_t = time_scan(dense, q)
-    return scan_t, scan_bf_t, time_stage2("main path", bm25_args)
+    scan_t, scan_bf_t, scan_tf32_t = time_scan(dense, q)
+    return scan_t, scan_bf_t, scan_tf32_t, time_stage2("main path",
+                                                       bm25_args)
 
 
 def run_main_path(dense, sparse, tokens, rng):
@@ -1537,8 +1607,8 @@ def run_main_path(dense, sparse, tokens, rng):
         log(lines[-1])
     launches = {**scan_counts(ft),
                 "bm25_match": ob.bm25_match_rows.launches}
-    if ft.route_launches["fused_scan"]:
-        raise AssertionError(f"the main path fell to the CUDA-core scan "
+    if ft.route_launches["fused_scan_tf32"]:
+        raise AssertionError(f"the main path fell to the split-TF32 scan "
                              f"kernel: {ft.route_launches}")
     if ob.bm25_match_scores.launches:
         raise AssertionError("bm25_topk reached the gathered-rows entry "
@@ -2010,8 +2080,8 @@ def run_tokens(col, emb, tokens):
         results.append(hits)
     launches = {**scan_counts(ft),
                 "bm25_match": ob.bm25_match_rows.launches}
-    if ft.route_launches["fused_scan"]:
-        raise AssertionError(f"the tokens wire fell to the CUDA-core scan "
+    if ft.route_launches["fused_scan_tf32"]:
+        raise AssertionError(f"the tokens wire fell to the split-TF32 scan "
                              f"kernel: {ft.route_launches}")
     if ob.bm25_match_scores.launches:
         raise AssertionError("the tokens wire reached the gathered-rows "
@@ -2451,7 +2521,7 @@ def run_orch(col, emb, kg, names, queries):
         f"{wall * 1e3:.1f} ms -> {len(queries) / wall:.1f} queries/s; "
         f"launches one at a time {launches} "
         f"({sum(launches.values()) / len(queries):.2f} a query)")
-    if ft.route_launches["fused_scan"] or not all(launches.values()):
+    if ft.route_launches["fused_scan_tf32"] or not all(launches.values()):
         raise AssertionError(f"[orch] launches {launches}, by kernel "
                              f"{ft.route_launches}")
 
@@ -2571,7 +2641,8 @@ def run_batcher(col, emb, tokens):
         f"{BATCHER_REQS // BATCHER_MAX} sequential batches of {BATCHER_MAX}: "
         f"{seq_wall * 1e3:.1f} ms -> {BATCHER_REQS / seq_wall:,.0f} "
         f"requests/s (host clock); launches {launches}")
-    if b.requests_served != BATCHER_REQS or ft.route_launches["fused_scan"] \
+    if b.requests_served != BATCHER_REQS \
+            or ft.route_launches["fused_scan_tf32"] \
             or not all(launches.values()):
         raise AssertionError(f"[batcher] served {b.requests_served}, "
                              f"launches {ft.route_launches}")
@@ -3643,9 +3714,10 @@ def run_local_llm(params, cfg, dev):
 
     async def drive():
         t0 = time.perf_counter()
-        resp = await llm.chat(msgs, max_tokens=CHAT_NEW, temperature=0.0)
+        resp = await llm.chat(msgs, max_tokens=CHAT_RUN_NEW,
+                              temperature=0.0)
         t1 = time.perf_counter()
-        chunks = [c async for c in llm.stream(msgs, max_tokens=CHAT_NEW,
+        chunks = [c async for c in llm.stream(msgs, max_tokens=CHAT_RUN_NEW,
                                               temperature=0.0)]
         return resp, chunks, t1 - t0, time.perf_counter() - t1
 
@@ -4949,7 +5021,8 @@ def run_agents(col, emb, kg, tokens, dev):
                     "bm25_match": ob.bm25_match_rows.launches}
         preps_all = oq.prepare_vectors_into.launches
         recorded = (len(scans), len(matches))
-        if (ft.route_launches["fused_scan"] or not all(launches.values())
+        if (ft.route_launches["fused_scan_tf32"]
+                or not all(launches.values())
                 or recorded[0] < launches["fused_scan"]
                 + launches["fused_scan_bf16"]
                 or recorded[1] < launches["bm25_match"]):
@@ -5993,7 +6066,7 @@ def media_search(emb, col, blocks, caps, rows, rng):
         launches = {**scan_counts(ft),
                     "bm25_match": ob.bm25_match_rows.launches}
     errs = check_recorded("[media] searches", scans, matches)
-    if ft.route_launches["fused_scan"] or not all(launches.values()):
+    if ft.route_launches["fused_scan_tf32"] or not all(launches.values()):
         raise AssertionError(f"[media] launches {launches}")
     own = np.mean([bool(h) and h[0].row == rows[i] for h, i in zip(hi, qi)])
     own10 = np.mean([rows[i] in [x.row for x in h] for h, i in zip(hi, qi)])
@@ -7761,6 +7834,7 @@ def main() -> int:
     if sys.argv[1:] == ["--tp"]:
         return tp_only(dev, card)
 
+    from rag_application_tpu_torch.ops import fused_topk as ft
     from rag_application_tpu_torch.ops import quant as oq
 
     oq.prepare_vectors_into.launches = 0
@@ -7778,8 +7852,9 @@ def main() -> int:
     q, texts = make_queries(dense, tokens, rng, 1)
     t0 = time.perf_counter()
     scan_errs, n_cases = check_scan(dense, cap, q)
-    scan_err = max(scan_errs["fused_scan_int8"], scan_errs["fused_scan"])
+    scan_err = scan_errs["fused_scan_int8"]
     scan_bf_err = scan_errs["fused_scan_bf16"]
+    scan_tf32_err = scan_errs["fused_scan_tf32"]
     bm25_err, bm25_args = check_bm25(sparse, texts)
     log(f"[check] {n_cases} scan cases + bm25 passed in "
         f"{time.perf_counter() - t0:.1f} s; scan max abs err by kernel "
@@ -7787,12 +7862,16 @@ def main() -> int:
     del cap
 
     log(f"[time] kernels at the main-path shapes ({card})")
-    scan_t, scan_bf_t, bm25_t = time_kernels(dense, q, bm25_args)
+    scan_t, scan_bf_t, scan_tf32_t, bm25_t = time_kernels(dense, q,
+                                                          bm25_args)
     torch.cuda.empty_cache()
 
     log(f"[main] FusedSearcher.search, batch {BATCH}, block {BLOCK}, "
         f"q_block {Q_BLOCK} ({card})")
     times, recall, launches, errs = run_main_path(dense, sparse, tokens, rng)
+    # the split-TF32 kernel's count from the main path's run (its guard
+    # fails the run where it is not 0)
+    tf32_launches = ft.route_launches["fused_scan_tf32"]
     scan_err = max(scan_err, errs[0])
     scan_bf_err = max(scan_bf_err, errs[1])
     bm25_err = max(bm25_err, errs[2])
@@ -7911,6 +7990,10 @@ def main() -> int:
               + serve_launches["fused_scan_bf16"]
               + media_launches["fused_scan_bf16"]
               + eval_launches["fused_scan_bf16"], scan_bf_err, scan_bf_t),
+        entry("fused_scan_tf32",
+              "rag_application_tpu_torch/csrc/fused_scan_tf32.cu",
+              "rag_application_tpu/ops/fused_topk.py:61", tf32_launches,
+              scan_tf32_err, scan_tf32_t),
         entry("bm25_match", "rag_application_tpu_torch/csrc/bm25_match.cu",
               "rag_application_tpu/ops/bm25.py:45",
               launches["bm25_match"] + agent_launches["bm25_match"]

@@ -2,16 +2,19 @@
 
     python3 -m rag_application_tpu_torch.kernels.scan_study
 
-1. The `mma.sync` peaks of the card, int8 `m16n8k32` and bf16
-   `m16n8k16`: a kernel that issues only independent products on register
-   fragments (132 x k blocks of 8 or 16 warps), in TOP/s and TFLOP/s.
-2. Ablations of `csrc/fused_scan_int8.cu` (`ABLATIONS`) and of
-   `csrc/fused_scan_bf16.cu` (`ABLATIONS_BF16`): the source is copied
+1. The `mma.sync` peaks of the card, int8 `m16n8k32`, bf16 `m16n8k16`
+   and tf32 `m16n8k8`: a kernel that issues only independent products on
+   register fragments (132 x k blocks of 8 or 16 warps), in TOP/s and
+   TFLOP/s.
+2. Ablations of `csrc/fused_scan_int8.cu` (`ABLATIONS`), of
+   `csrc/fused_scan_bf16.cu` (`ABLATIONS_BF16`) and of
+   `csrc/fused_scan_tf32.cu` (`ABLATIONS_TF32`): the source is copied
    with one part cut or changed, each copy built by nvcc into
    `build/scan_study/`, checked against `scan_sheet_plain` where it still
    computes the scan, and timed at its main shape (int8 packed,
    1,048,576 x 768; the cascade's bf16 prefix-128 scan with per-row
-   scales, 1,048,576 x 128 of a 768-wide table; both 8192 queries, block
+   scales, 1,048,576 x 128 of a 768-wide table; an f32 corpus of 262,144
+   x 128 with f32 queries and per-row scales; all 8192 queries, block
    16384), built copies in turns (forward, then backward). An ablation
    that cuts work is not a scan: it bounds what that work costs.
 
@@ -74,12 +77,34 @@ __global__ void peak_bf16(int iters, int* out) {
   for (int t = 0; t < T; ++t) s += acc[t][0] + acc[t][1] + acc[t][2] + acc[t][3];
   out[blockIdx.x * blockDim.x + threadIdx.x] = __float_as_int(s);
 }
-template <int T, bool BF16>
+template <int T>
+__global__ void peak_tf32(int iters, int* out) {
+  float acc[T][4] = {};
+  // small finite TF32 values, so no sum leaves the normal range
+  uint32_t a[4] = {0x3f800000u + ((threadIdx.x & 7) << 13), 0x3f000000u,
+                   0xbf800000u, 0x3e800000u};
+  uint32_t b0 = 0x3f000000u + ((threadIdx.x & 3) << 13), b1 = 0xbf000000u;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int t = 0; t < T; ++t)
+      asm volatile(
+          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+          "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+          : "+f"(acc[t][0]), "+f"(acc[t][1]), "+f"(acc[t][2]), "+f"(acc[t][3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  float s = 0;
+#pragma unroll
+  for (int t = 0; t < T; ++t) s += acc[t][0] + acc[t][1] + acc[t][2] + acc[t][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = __float_as_int(s);
+}
+// KIND: 0 s8 m16n8k32, 1 bf16 m16n8k16, 2 tf32 m16n8k8
+template <int T, int KIND>
 void run(int warps, int per_sm) {
   int* out;
   const int blocks = 132 * per_sm, threads = 32 * warps, iters = 4096;
   cudaMalloc(&out, sizeof(int) * blocks * threads);
-  auto kernel = BF16 ? peak_bf16<T> : peak<T>;
+  auto kernel = KIND == 2 ? peak_tf32<T> : KIND == 1 ? peak_bf16<T> : peak<T>;
   kernel<<<blocks, threads>>>(16, out);
   cudaEvent_t e0, e1;
   cudaEventCreate(&e0);
@@ -90,24 +115,29 @@ void run(int warps, int per_sm) {
   cudaEventSynchronize(e1);
   float ms;
   cudaEventElapsedTime(&ms, e0, e1);
-  const double ops = 2.0 * 16 * 8 * (BF16 ? 16 : 32) * T * double(iters) *
-                     warps * blocks;
-  printf("mma.sync %s peak: %d products in flight a warp, %d warps x %d "
-         "blocks a SM: %.1f %s\n", BF16 ? "bf16 m16n8k16" : "s8 m16n8k32", T,
-         warps, per_sm, ops / ms / 1e9, BF16 ? "TFLOP/s" : "TOP/s");
+  const int k = KIND == 2 ? 8 : KIND == 1 ? 16 : 32;
+  const double ops = 2.0 * 16 * 8 * k * T * double(iters) * warps * blocks;
+  printf("mma.sync %s m16n8k%d peak: %d products in flight a warp, %d warps "
+         "x %d blocks a SM: %.1f %s\n",
+         KIND == 2 ? "tf32" : KIND == 1 ? "bf16" : "s8", k, T, warps, per_sm,
+         ops / ms / 1e9, KIND ? "TFLOP/s" : "TOP/s");
   cudaFree(out);
 }
 int main() {
-  run<16, false>(8, 1);
-  run<16, false>(8, 2);
-  run<16, false>(16, 2);
-  run<4, false>(8, 1);
-  run<16, true>(8, 1);
-  run<16, true>(8, 2);
-  run<16, true>(16, 2);
-  run<8, true>(8, 1);
-  run<4, true>(8, 1);
-  run<8, true>(4, 1);
+  run<16, 0>(8, 1);
+  run<16, 0>(8, 2);
+  run<16, 0>(16, 2);
+  run<4, 0>(8, 1);
+  run<16, 1>(8, 1);
+  run<16, 1>(8, 2);
+  run<16, 1>(16, 2);
+  run<8, 1>(8, 1);
+  run<4, 1>(8, 1);
+  run<8, 1>(4, 1);
+  run<16, 2>(8, 1);
+  run<16, 2>(16, 2);
+  run<8, 2>(8, 1);
+  run<4, 2>(8, 1);
   return cudaDeviceSynchronize() != cudaSuccess;
 }
 """
@@ -185,10 +215,59 @@ ABLATIONS_BF16 = {
         _NO_FRAGS_BF16 + _NO_FOLD_BF16 + _NO_LOADS, False),
 }
 
+# the split-TF32 kernel (f32 corpus): its split, and its K loop's operands
+# read at each chunk's first k-step only
+_CVT_SPLIT = [("  return (x + 0x1000u) & 0xffffe000u;",
+               "  uint32_t r;\n"
+               "  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(r) : "
+               "\"f\"(__uint_as_float(x)));\n  return r;")]
+_TRUNC_SMALL = [("""  small = tf32_rna(__float_as_uint(__uint_as_float(x) -
+                                   __uint_as_float(big)));""",
+                 "  small = __float_as_uint(__uint_as_float(x) - "
+                 "__uint_as_float(big));")]
+_NO_FRAGS_TF32 = [
+    (_KSTEP + "      uint32_t b[4][2];\n",
+     "    uint32_t b[4][2], aa[MT][2][4];\n" + _KSTEP),
+    ("      for (int np = 0; np < 2; ++np) {\n        uint32_t x[4];",
+     "      for (int np = 0; np < 2 && ks == 0; ++np) {\n        uint32_t x[4];"),
+    ("""          uint32_t ab[4], as[4];
+          const uint32_t a = swz<QKC>(a_row + 16 * mt, 2 * ks + a_hi);
+          ldmatrix_x4(ab, qb + a);
+          ldmatrix_x4(as, qb + QTILE + a);""",
+     """          uint32_t (&ab)[4] = aa[mt][0], (&as)[4] = aa[mt][1];
+          const uint32_t a = swz<QKC>(a_row + 16 * mt, 2 * ks + a_hi);
+          if (ks == 0) ldmatrix_x4(ab, qb + a), ldmatrix_x4(as, qb + QTILE + a);"""),
+]
+_NO_FOLD_TF32 = [("""        float v = acc[mt][nt][i];
+        if (scale != nullptr) v = __fmul_rn(v, sc[h]);
+        if (CHECKED && !((vbits >> (nt * 2 + h)) & 1)) v = NEG;
+        if (v > bval[mt][nt][i]) {
+          bval[mt][nt][i] = v;
+          brow[mt][nt][i] = r;
+        }
+""", """        bval[mt][nt][i] = fmaxf(bval[mt][nt][i], acc[mt][nt][i]);
+""")]
+_ONE_PRODUCT = [("""            mma_tf32(acc[mt][nt], as, bb[nt][0], bb[nt][1]);
+            mma_tf32(acc[mt][nt], ab, bs[nt][0], bs[nt][1]);
+""", "")]
+ABLATIONS_TF32 = {
+    "as built": ([], True),
+    "split by cvt.rna.tf32.f32": (_CVT_SPLIT, True),
+    "small left to the tensor core's truncation": (_TRUNC_SMALL, True),
+    "32-query tiles": ([("const bool wide = (q_count + 63) / 64 * segs >= "
+                         "sms;", "const bool wide = false;")], True),
+    "one TF32 product a term (big.big)": (_ONE_PRODUCT, False),
+    "no fold (bval = max(bval, score))": (_NO_FOLD_TF32, False),
+    "no ring loads after the prologue": (_NO_LOADS, False),
+    "operands (and so the corpus split) of each chunk's first k-step only": (
+        _NO_FRAGS_TF32, False),
+}
+
 # study -> (source in csrc/, its entry function, ablations)
 STUDIES = {
     "int8": ("fused_scan_int8.cu", "fused_scan_int8", ABLATIONS),
     "bf16": ("fused_scan_bf16.cu", "fused_scan_bf16", ABLATIONS_BF16),
+    "tf32": ("fused_scan_tf32.cu", "fused_scan_tf32", ABLATIONS_TF32),
 }
 
 
@@ -365,6 +444,39 @@ def main() -> int:
                       vals.data_ptr(), ids.data_ptr(), stream)),
         {name: scan for name, (_, scan) in ABLATIONS_BF16.items()},
         check_bf16, nb, 2.0 * q * n * dp, "TFLOP/s")
+    del cb, qb, inv, bv, bi
+
+    # the split-TF32 kernel on its own ground: an f32 corpus (unit rows of
+    # 128, 262,144 of them), f32 queries, per-row scales in [0.5, 1.5);
+    # the rate counts the f32 flops, 2 Q N d (three TF32 products each)
+    nf = 262144
+    cf = torch.randn((nf, dp), generator=gen, device=dev)
+    cf /= torch.linalg.vector_norm(cf, dim=-1, keepdim=True)
+    qf = torch.randn((q, dp), generator=gen, device=dev)
+    qf /= torch.linalg.vector_norm(qf, dim=-1, keepdim=True)
+    invf = torch.rand(nf, generator=gen, device=dev) + 0.5
+    fv, fi = ft.scan_sheet_plain(cf[:8 * block], qf, invf[:8 * block], None,
+                                 mode="f32", **kw)
+    atol_f = 1.5 * atol  # unit rows, scales below 1.5
+
+    def check_tf32(name, vals, ids):
+        err = (vals - fv).abs().max().item()
+        differ = (ids != fi).float().mean().item()
+        if err > atol_f or differ > 1e-3:
+            raise AssertionError(f"tf32: {name}: max abs err {err:.3g} "
+                                 f"(atol {atol_f:.3g}), ids differ "
+                                 f"{differ:.2e}")
+
+    time_study(
+        "tf32",
+        launchers("tf32", [p, ctypes.c_bool, ll, p, i, i, p, p, ll, i, i, i,
+                           i, p, p, p],
+                  lambda fn, blocks, vals, ids: fn(
+                      cf.data_ptr(), False, dp, qf.data_ptr(), q, dp,
+                      invf.data_ptr(), None, -1, blocks, block, 1,
+                      rows_total, vals.data_ptr(), ids.data_ptr(), stream)),
+        {name: scan for name, (_, scan) in ABLATIONS_TF32.items()},
+        check_tf32, nf // block, 2.0 * q * nf * dp, "TFLOP/s")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)

@@ -33,7 +33,11 @@ Which kernel a scan takes, by corpus and query type:
   * an f32 corpus, f32 queries on a bf16 corpus, or a bf16 scan with an
     odd depth, an odd row stride or a pointer off a 4-byte boundary
     (`cp.async` cannot copy those; its queries are upcast to f32):
-    `csrc/fused_scan.cu` (CUDA cores, `fmaf`).
+    `csrc/fused_scan_tf32.cu` (tensor cores, `mma.sync` tf32): each f32
+    operand split into two TF32 values and the dot taken as three TF32
+    products (two over a bf16 corpus, exact in TF32), within f32's own
+    rounding of the plain version (`tf32_round` and `tf32_split_dot`
+    model the split).
 
 Bitcasts are `.view()` reinterprets, never `.to()` casts, and the packed
 decode is a floor division, as `//` is in JAX.
@@ -62,10 +66,10 @@ _INT_MIN = -(2 ** 31)
 _MODES = {"packed": 0, "packed_scaled": 1, "int8_general": 2, "f32": 2}
 # route (the kernel's source in csrc/) -> fused_scan_launch's dtype code
 # for it, by corpus dtype
-ROUTES = ("fused_scan_int8", "fused_scan_bf16", "fused_scan")
+ROUTES = ("fused_scan_int8", "fused_scan_bf16", "fused_scan_tf32")
 _DTYPE_CODES = {("fused_scan_int8", torch.int8): 0,
-                ("fused_scan", torch.bfloat16): 1,
-                ("fused_scan", torch.float32): 2,
+                ("fused_scan_tf32", torch.bfloat16): 1,
+                ("fused_scan_tf32", torch.float32): 2,
                 ("fused_scan_bf16", torch.bfloat16): 3}
 # launches of each route by `scan_sheet`; their sum is `scan_sheet.launches`
 # unless a caller reset one without the other
@@ -86,7 +90,41 @@ def scan_route(corpus_dtype: torch.dtype, query_dtype: torch.dtype, d: int,
             and d % 2 == 0 and row_stride % 2 == 0
             and corpus_ptr % 4 == 0 and query_ptr % 4 == 0):
         return "fused_scan_bf16"
-    return "fused_scan"
+    return "fused_scan_tf32"
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 stored significand bits) as the
+    split-TF32 kernel rounds it, with the rounding of `cvt.rna.tf32.f32`:
+    to nearest, ties away from zero, on the low 13 bits; a value past the
+    largest TF32 rounds to inf, and inf and nan pass through."""
+    bits = x.float().contiguous().view(torch.int32)
+    finite = (bits & 0x7F800000) != 0x7F800000
+    # the f32 bit pattern is sign + magnitude, so adding half a TF32 ulp to
+    # it rounds the magnitude half away from zero
+    rounded = (bits + 0x1000) & -0x2000
+    return torch.where(finite, rounded, bits).view(torch.float32)
+
+
+def tf32_split_dot(a: torch.Tensor, b: torch.Tensor,
+                   products: int = 3) -> torch.Tensor:
+    """(Q, d) x (N, d) -> (Q, N) f64 dots of the split-TF32 kernel's
+    products, each exact and summed in f64, so only the split's error is
+    left: each operand is big = tf32(x) plus small = tf32(x - big), and
+    the dot is big.big + big.small + small.big (``products=3``), or the
+    one TF32 product big.big (``products=1``)."""
+    def split(x):
+        x = x.float()
+        big = tf32_round(x)
+        return big.double(), tf32_round(x - big).double()
+
+    (ab, as_), (bb, bs) = split(a), split(b)
+    out = ab @ bb.T
+    if products == 3:
+        out = out + (ab @ bs.T + as_ @ bb.T)
+    elif products != 1:
+        raise ValueError(f"products must be 1 or 3, not {products}")
+    return out
 
 
 def _packed_fits(d: int, block_rows: int) -> bool:
@@ -264,8 +302,8 @@ def scan_sheet(corpus: torch.Tensor, queries: torch.Tensor,
         raise ValueError("scan_sheet: int8 queries must be 4-byte aligned")
     route = scan_route(corpus.dtype, queries.dtype, d, corpus.stride(0),
                        corpus.data_ptr(), queries.data_ptr())
-    if route == "fused_scan":
-        queries = queries.float()  # the CUDA-core kernel stages f32 queries
+    if route == "fused_scan_tf32":
+        queries = queries.float()  # the split-TF32 kernel stages f32 queries
     if queries.shape[1] != d or queries.device != corpus.device:
         raise ValueError("scan_sheet: queries must be (Q, d) on the corpus "
                          "device")

@@ -194,17 +194,124 @@ BF16, F32, I8 = torch.bfloat16, torch.float32, torch.int8
     ((BF16, BF16, 128, 768, 0, 0), "fused_scan_bf16"),   # the cascade scan
     ((BF16, BF16, 72, 72, 256, 512), "fused_scan_bf16"),
     ((BF16, BF16, 100, 116, 4, 4), "fused_scan_bf16"),   # 4-byte copies
-    ((BF16, BF16, 101, 101, 0, 0), "fused_scan"),        # odd depth
-    ((BF16, BF16, 100, 117, 0, 0), "fused_scan"),        # odd row stride
-    ((BF16, BF16, 128, 768, 2, 0), "fused_scan"),        # corpus off 4 bytes
-    ((BF16, BF16, 128, 768, 0, 6), "fused_scan"),        # queries off 4 bytes
-    ((BF16, F32, 128, 768, 0, 0), "fused_scan"),         # f32 queries
-    ((F32, F32, 128, 768, 0, 0), "fused_scan"),
-    ((F32, BF16, 128, 768, 0, 0), "fused_scan"),
+    ((BF16, BF16, 101, 101, 0, 0), "fused_scan_tf32"),   # odd depth
+    ((BF16, BF16, 100, 117, 0, 0), "fused_scan_tf32"),   # odd row stride
+    ((BF16, BF16, 128, 768, 2, 0), "fused_scan_tf32"),   # corpus off 4 bytes
+    ((BF16, BF16, 128, 768, 0, 6), "fused_scan_tf32"),   # queries off 4 bytes
+    ((BF16, F32, 128, 768, 0, 0), "fused_scan_tf32"),    # f32 queries
+    ((F32, F32, 128, 768, 0, 0), "fused_scan_tf32"),
+    ((F32, BF16, 128, 768, 0, 0), "fused_scan_tf32"),
 ])
 def test_scan_route(args, route):
     assert tf.scan_route(*args) == route
     assert route in tf.ROUTES and route in tf.route_launches
+
+
+# f32 operands, which take the split-TF32 kernel on the card (an f32 corpus
+# with f32 queries, the reference's f32 `dot_general`): the plain version
+# against the Pallas kernel at a depth inside a 16-byte row (100), one off it
+# (101: the kernel's 4-byte copies) and one past its resident query tile
+# (768: query chunks ride in the ring); Q 67, inv_norms in [0.5, 1.5), a
+# mask and a ragged tail
+@pytest.mark.parametrize("d", [100, 101, 768])
+@pytest.mark.parametrize("strips,strip_outputs", [(1, False), (2, True)])
+def test_scan_sheet_f32_corpus_matches_pallas(rng, d, strips, strip_outputs):
+    block = 1024
+    n = 2 * block + 300
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    qs = x[:67] + 0.05 * rng.standard_normal((67, d)).astype(np.float32)
+    qs /= np.linalg.norm(qs, axis=-1, keepdims=True)
+    inv = (rng.random(n) + 0.5).astype(np.float32)
+    mask = rng.random(n) > 0.3
+    kw = dict(select=False, block_rows=block, strips=strips,
+              strip_outputs=strip_outputs)
+    jv, jids = jf.fused_scan_topk(jnp.asarray(x), jnp.asarray(qs), 12,
+                                  inv_norms=jnp.asarray(inv),
+                                  mask=jnp.asarray(mask), **kw)
+    tc, tq, ti = (torch.from_numpy(a) for a in (x, qs, inv))
+    tv, tids = tf.fused_scan_topk(tc, tq, 12, inv_norms=ti,
+                                  mask=torch.from_numpy(mask), **kw)
+    assert tf.fused_scan_topk.last_path == jf.fused_scan_topk.last_path \
+        == "f32"
+    bins = 128 * (strips if strip_outputs else 1)
+    assert tv.shape == tids.shape == (67, -(-n // block) * bins)
+    # unit rows: the d * 2^-24 bound a side, scaled by inv's 1.5
+    _check_f32_sheet(np.asarray(jv), np.asarray(jids), tv.numpy(),
+                     tids.numpy(), tc, tq, ti, d,
+                     atol=1.5 * F32_ATOL * max(1.0, d / 128))
+
+
+def _f32_from_bits(bits):
+    return torch.from_numpy(np.array(bits, dtype=np.uint32).view(np.float32))
+
+
+# `tf32_round` as `cvt.rna.tf32.f32` rounds: to nearest on the low 13 bits,
+# ties away from zero (where round-to-even would differ: 1 + 2^-11), with
+# carries into the exponent, subnormals rounded on the same bits, and inf
+# and nan (one whose payload sits in the low bits too) passed through
+@pytest.mark.parametrize("bits,want", [
+    (0x3F800000, 0x3F800000),  # 1.0
+    (0x3F801000, 0x3F802000),  # 1 + 2^-11, a tie: away from zero
+    (0xBF801000, 0xBF802000),  # -(1 + 2^-11)
+    (0x3F803000, 0x3F804000),  # 1 + 3 * 2^-11, a tie
+    (0x3F800FFF, 0x3F800000),  # below the tie
+    (0x3F801001, 0x3F802000),  # above the tie
+    (0xC2C81FFF, 0xC2C82000),  # -100.0625..., up in magnitude
+    (0x3FFFFFFF, 0x40000000),  # carries into the exponent: 2.0
+    (0x00001000, 0x00002000),  # a subnormal tie
+    (0x80001000, 0x80002000),  # a negative subnormal tie
+    (0x00000FFF, 0x00000000),  # rounds to zero
+    (0x007FFFFF, 0x00800000),  # the largest subnormal: the smallest normal
+    (0x7F800000, 0x7F800000),  # inf
+    (0xFF800000, 0xFF800000),  # -inf
+    (0x7FC00000, 0x7FC00000),  # nan
+    (0x7F800001, 0x7F800001),  # nan, payload in the low bits
+])
+def test_tf32_round_hand_picked(bits, want):
+    got = tf.tf32_round(_f32_from_bits([bits])).numpy().view(np.uint32)
+    assert int(got[0]) == want, f"{bits:#010x} -> {int(got[0]):#010x}"
+
+
+def test_tf32_round_is_the_nearest_ties_away(rng):
+    """On random f32 over normal and subnormal exponents: the nearer of
+    the two TF32 values around x (low 13 bits cut, or cut plus one TF32
+    ulp away from zero), the one away from zero at a tie."""
+    bits = rng.integers(0, 2 ** 32, size=200_000, dtype=np.uint64)
+    bits = bits.astype(np.uint32)
+    bits = bits[(bits & 0x7F800000) < 0x7F000000]  # finite, no overflow
+    bits[:4096] &= 0x80001FFF | 0x007FE000  # subnormals, ties among them
+    x = _f32_from_bits(bits)
+    got = tf.tf32_round(x).double().numpy()
+    low = (bits & np.uint32(0xFFFFE000)).view(np.float32).astype(np.float64)
+    high = (((bits & np.uint32(0xFFFFE000)) + np.uint32(0x2000))
+            .view(np.float32).astype(np.float64))
+    xd = x.double().numpy()
+    want = np.where(np.abs(xd - low) < np.abs(high - xd), low, high)
+    np.testing.assert_array_equal(got, want)
+    assert (np.abs(xd - low) == np.abs(high - xd)).sum() > 0  # ties seen
+
+
+# the split-TF32 kernel's arithmetic: each f32 operand split into big +
+# small TF32 values, three products kept. On rows whose elements span 2^-8
+# to 2^8, the three-product dot (products exact, summed in f64) stays
+# within d * 2^-24 * sum |a_i b_i| of the exact dot: f32's own rounding
+# bound for the sum, which the chip checks hold the kernel to. One TF32
+# product does not: the split is what keeps the kernel at f32 accuracy.
+@pytest.mark.parametrize("d", [8, 100, 768, 2176])
+def test_tf32_split_dot_within_f32_rounding(rng, d):
+    def rows(n):
+        return torch.from_numpy(
+            (rng.standard_normal((n, d))
+             * np.exp2(rng.uniform(-8, 8, (n, d)))).astype(np.float32))
+
+    a, b = rows(64), rows(64)
+    exact = a.double() @ b.double().T
+    tol = d * 2.0 ** -24 * (a.double().abs() @ b.double().abs().T)
+    three = (tf.tf32_split_dot(a, b) - exact).abs()
+    one = (tf.tf32_split_dot(a, b, products=1) - exact).abs()
+    assert (three <= tol).all(), (three / tol).max()
+    assert (one > tol).any()
 
 
 def test_scan_route_of_the_cascade_operands(rng):
