@@ -25,7 +25,7 @@ import torch
 
 from ..config import SparseConfig
 from ..ops.bm25 import bm25_topk
-from ..utils import DeviceLike, resolve_device, round_up
+from ..utils import TRACER, DeviceLike, resolve_device, round_up
 from .analyzer import Analyzer
 
 
@@ -397,36 +397,37 @@ class SparseIndex:
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Queries -> (q_rows, q_terms, q_valid) on the index device,
         fixed width T."""
-        t = self.cfg.max_query_terms
-        dv = self.device_arrays()
-        v_pad = dv["v_pad"]
-        n = len(queries)
-        q_rows = np.full((n, t), v_pad - 1, dtype=np.int32)
-        q_terms = np.full((n, t), -2, dtype=np.int32)
-        q_valid = np.zeros((n, t), dtype=bool)
-        encode_batch = getattr(self.analyzer, "encode_batch", None)
-        if encode_batch is not None:
-            flat, offsets = encode_batch(queries, grow=False)
-            for i in range(n):
-                seg = flat[offsets[i]:offsets[i + 1]]
-                # first occurrence order, truncated to T
-                tids = pd_unique(seg)[:t] if seg.size else seg
-                m = len(tids)
-                q_rows[i, :m] = tids
-                q_terms[i, :m] = tids
-                q_valid[i, :m] = True
-        else:
-            for i, qtext in enumerate(queries):
-                tids = list(dict.fromkeys(
-                    self.analyzer.encode(qtext, grow=False)))[:t]
-                for j, tid in enumerate(tids):
-                    q_rows[i, j] = tid
-                    q_terms[i, j] = tid
-                    q_valid[i, j] = True
-        dev = self.device
-        return (torch.from_numpy(q_rows).to(dev),
-                torch.from_numpy(q_terms).to(dev),
-                torch.from_numpy(q_valid).to(dev))
+        with TRACER.span("search.encode"):
+            t = self.cfg.max_query_terms
+            dv = self.device_arrays()
+            v_pad = dv["v_pad"]
+            n = len(queries)
+            q_rows = np.full((n, t), v_pad - 1, dtype=np.int32)
+            q_terms = np.full((n, t), -2, dtype=np.int32)
+            q_valid = np.zeros((n, t), dtype=bool)
+            encode_batch = getattr(self.analyzer, "encode_batch", None)
+            if encode_batch is not None:
+                flat, offsets = encode_batch(queries, grow=False)
+                for i in range(n):
+                    seg = flat[offsets[i]:offsets[i + 1]]
+                    # first occurrence order, truncated to T
+                    tids = pd_unique(seg)[:t] if seg.size else seg
+                    m = len(tids)
+                    q_rows[i, :m] = tids
+                    q_terms[i, :m] = tids
+                    q_valid[i, :m] = True
+            else:
+                for i, qtext in enumerate(queries):
+                    tids = list(dict.fromkeys(
+                        self.analyzer.encode(qtext, grow=False)))[:t]
+                    for j, tid in enumerate(tids):
+                        q_rows[i, j] = tid
+                        q_terms[i, j] = tid
+                        q_valid[i, j] = True
+            dev = self.device
+            return (torch.from_numpy(q_rows).to(dev),
+                    torch.from_numpy(q_terms).to(dev),
+                    torch.from_numpy(q_valid).to(dev))
 
     def search(self, queries: Sequence[str], k: int, *, filter_mask=None,
                approx: bool = True) -> Tuple[np.ndarray, np.ndarray]:

@@ -50,6 +50,15 @@ row never reuses a registered prefix's K/V, which the base computed.
 TP-sharded parameters (parallel/tp.py::shard_params) run unchanged: the
 decoder's entry points take them, and the batcher's caches, row state
 and sampling live on their merge device.
+
+Observability: `stats()` counts steps, tokens, compactions, admissions
+and prefix hits (also in /metrics as ``decode_*``). With the tracer on
+(`utils.observability.TRACER.enable()`, or any running torch profiler)
+a request's life shows as spans: ``batcher.queue`` (submit to its
+admission), ``batcher.admit`` (with ``rid``), then, a decode chunk at a
+time (with ``chunk``), ``batcher.dispatch``, ``batcher.readback`` and
+``batcher.deliver``; ``batcher.compact`` for a compaction. Each closed
+span is also ``stage_seconds{stage=<name>}`` in /metrics.
 """
 
 from __future__ import annotations
@@ -72,6 +81,7 @@ from ..models.decoder import (
     prefill,
     sample_logits,
 )
+from ..utils.observability import METRICS, TRACER
 
 DEAD = 2 ** 30  # slot_pos sentinel: slot holds nothing attendable
 NEG = -1.0e30
@@ -517,32 +527,35 @@ def _compact(ck, cv, slot_pos) -> Tuple[Any, Any, torch.Tensor, int]:
     returns the re-packed caches, slot_pos, and the new shared write head
     (max live count over rows — rows with fewer live slots keep a DEAD
     gap, which the mask ignores), read back to the host."""
-    order = torch.argsort(slot_pos, dim=1, stable=True)         # (B, S)
-    slot_pos = torch.gather(slot_pos, 1, order)
+    with TRACER.span("batcher.compact"):
+        order = torch.argsort(slot_pos, dim=1, stable=True)         # (B, S)
+        slot_pos = torch.gather(slot_pos, 1, order)
 
-    def gather(c):
-        def one(d):
-            idx = order.reshape((1,) + order.shape + (1,) * (d.dim() - 3))
-            return torch.gather(d, 2, idx.expand(d.shape))
-        return ({k: one(v) for k, v in c.items()} if isinstance(c, dict)
-                else one(c))
+        def gather(c):
+            def one(d):
+                idx = order.reshape((1,) + order.shape + (1,) * (d.dim() - 3))
+                return torch.gather(d, 2, idx.expand(d.shape))
+            return ({k: one(v) for k, v in c.items()} if isinstance(c, dict)
+                    else one(c))
 
-    head = int((slot_pos < DEAD).sum(dim=1).max())
-    return gather(ck), gather(cv), slot_pos, head
+        head = int((slot_pos < DEAD).sum(dim=1).max())
+        return gather(ck), gather(cv), slot_pos, head
 
 
-def _readback(out: torch.Tensor) -> np.ndarray:
+def _readback(out: torch.Tensor, chunk: int) -> np.ndarray:
     """A chunk's output on the host: on the card a non-blocking copy into
-    pinned memory behind the chunk's kernels, then an event to wait on."""
-    if out.device.type != "cuda":
-        return out.numpy().copy()
-    with torch.cuda.device(out.device):
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        ev.synchronize()
-    return host.numpy()
+    pinned memory behind the chunk's kernels, then an event to wait on.
+    ``chunk``: the chunk's number, for its span."""
+    with TRACER.span("batcher.readback", chunk=chunk):
+        if out.device.type != "cuda":
+            return out.numpy().copy()
+        with torch.cuda.device(out.device):
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            ev.synchronize()
+        return host.numpy()
 
 
 class ContinuousBatcher:
@@ -638,7 +651,8 @@ class ContinuousBatcher:
             self._restack_constraints()
         self._reset_device_state()
         self._slots = [_Slot() for _ in range(slots)]
-        # (request id, prompt ids, max_new, eos_id, queue, adapter id, ext)
+        # (request id, prompt ids, max_new, eos_id, queue, adapter id, ext,
+        #  the request's `batcher.queue` span, open from its submit)
         self._pending: asyncio.Queue = asyncio.Queue()
         self._next_id = 0
         self._task: Optional[asyncio.Task] = None
@@ -647,7 +661,9 @@ class ContinuousBatcher:
         self.tokens_out = 0  # delivered ids (speculative tokens/step =
         #                      tokens_out/steps; ~1 without spec_k)
         self._prefixes: List[Tuple[Tuple[int, ...], Any, Any]] = []
+        self.admissions = 0
         self.prefix_hits = 0
+        self.prefix_tokens = 0  # prompt tokens served from a cached prefix
 
     def _gen_for(self, tag: int) -> Optional[torch.Generator]:
         """The generator for draw `tag` (None when greedy: no draws)."""
@@ -686,11 +702,16 @@ class ContinuousBatcher:
 
     def stats(self) -> Dict[str, float]:
         """Serving counters (also pushed to utils.observability.METRICS
-        as decode_* by the loop)."""
+        as decode_* by the loop): ``admissions``, and of them
+        ``prefix_hits`` that reused a registered prefix's K/V, with
+        ``prefix_tokens`` the prompt tokens served from it."""
         return {"steps": self.steps, "compactions": self.compactions,
                 "tokens_out": self.tokens_out,
                 "tokens_per_step": (self.tokens_out / self.steps
-                                    if self.steps else 0.0)}
+                                    if self.steps else 0.0),
+                "admissions": self.admissions,
+                "prefix_hits": self.prefix_hits,
+                "prefix_tokens": self.prefix_tokens}
 
     # ------------------------------------------------------------ public
 
@@ -770,7 +791,8 @@ class ContinuousBatcher:
         self._next_id += 1
         try:
             await self._pending.put((rid, ids, int(max_new), int(eos_id), q,
-                                     int(adapter_id), ext))
+                                     int(adapter_id), ext,
+                                     TRACER.open("batcher.queue", rid=rid)))
             self._ensure_loop()
             while True:
                 t = await q.get()
@@ -921,73 +943,85 @@ class ContinuousBatcher:
         Runs in an executor thread; returns the first sampled token in
         speculative mode (else None). Queue-facing state moves in
         `_finish_admit` on the loop thread."""
-        dev = self.device
-        padded = torch.zeros((1, self.T), dtype=torch.int32)
-        padded[0, :len(ids)] = torch.as_tensor(ids, dtype=torch.int32)
-        padded = padded.to(dev)
-        gen = self._gen_for(2 ** 20 + rid)
-        self._aid[row] = adapter_id
-        self._row_cid[row] = ext[0] if ext is not None else 0
-        row_lora = self._lora([adapter_id])
-        state = (self.ck, self.cv, self.slot_pos, self.pos, self.tok,
-                 self.active)
-        knobs = (self.temperature, self.top_k, self.top_p, gen)
-        if ext is not None:
-            # extended-sampling admission: seed the row's planes and
-            # sample the first token through the same masked transform
-            # the chunk steps apply (skips the prefix-cache fast path —
-            # the penalties need the row's full prompt counts anyway)
-            c, p, f, vec = ext
-            _prefill_row_ext(
-                self.params, self.cfg, padded, len(ids), row, *state,
-                self.counts, self.bias, self.pres, self.freq, self.cstate,
-                self.cid, self._cbanks, torch.as_tensor(vec, device=dev),
-                p, f, c, eos_id, *knobs, row_lora)
-        else:
-            if self.sampling_ext:
-                # plain admission into an ext batcher: the fast paths
-                # below sample the first token unmasked (identical law —
-                # zero planes are the identity transform); just clear
-                # whatever the row's previous occupant left in the planes
-                _ext_reset_row(self.counts, self.bias, self.pres, self.freq,
-                               self.cstate, self.cid, row)
-            # prefix K/V were computed through the BASE model: an adapter
-            # changes every projection, so adapter rows take a full prefill
-            match = None if adapter_id != 0 else next(
-                ((pids, pck, pcv) for pids, pck, pcv in self._prefixes
-                 if len(ids) > len(pids)
-                 and tuple(ids[:len(pids)]) == pids), None)
-            if match is not None:
-                pids, pck, pcv = match
-                sfx = ids[len(pids):]
-                Ts = 1
-                while Ts < len(sfx):
-                    Ts <<= 1
-                # the p0+Ts row buffer must paste inside the S-slot axis;
-                # a long suffix after a long prefix can overshoot the pow2
-                # pad — fall back to a full prefill rather than fail
-                if len(pids) + Ts > self.S:
-                    match = None
-            if match is not None:
-                spad = torch.zeros((1, Ts), dtype=torch.int32)
-                spad[0, :len(sfx)] = torch.as_tensor(sfx, dtype=torch.int32)
-                _prefill_row_prefix(self.params, self.cfg, pck, pcv,
-                                    spad.to(dev), len(sfx), row, *state,
-                                    *knobs, row_lora)
-                self.prefix_hits += 1
+        with TRACER.span("batcher.admit", rid=rid, row=row,
+                         prefix_hit=False, suffix_tokens=len(ids)) as sp:
+            dev = self.device
+            padded = torch.zeros((1, self.T), dtype=torch.int32)
+            padded[0, :len(ids)] = torch.as_tensor(ids, dtype=torch.int32)
+            padded = padded.to(dev)
+            gen = self._gen_for(2 ** 20 + rid)
+            self._aid[row] = adapter_id
+            self._row_cid[row] = ext[0] if ext is not None else 0
+            row_lora = self._lora([adapter_id])
+            state = (self.ck, self.cv, self.slot_pos, self.pos, self.tok,
+                     self.active)
+            knobs = (self.temperature, self.top_k, self.top_p, gen)
+            if ext is not None:
+                # extended-sampling admission: seed the row's planes and
+                # sample the first token through the same masked transform
+                # the chunk steps apply (skips the prefix-cache fast path —
+                # the penalties need the row's full prompt counts anyway)
+                c, p, f, vec = ext
+                _prefill_row_ext(
+                    self.params, self.cfg, padded, len(ids), row, *state,
+                    self.counts, self.bias, self.pres, self.freq, self.cstate,
+                    self.cid, self._cbanks, torch.as_tensor(vec, device=dev),
+                    p, f, c, eos_id, *knobs, row_lora)
             else:
-                _prefill_row(self.params, self.cfg, padded, len(ids), row,
-                             *state, *knobs, row_lora)
-        # the shared write head must never re-enter a live prompt range
-        # (possible after compaction shrank it): decode writes hit EVERY
-        # row at the shared slot and would clobber this prompt's K/V.
-        self.head = max(self.head, len(ids))
-        if self.spec_k:
-            # speculative batchers draft from per-row history and deliver
-            # the prefill-sampled first token at admission
-            _hist_admit(self.hist, padded, len(ids), row, self.tok)
-            return int(self.tok[row])
-        return None
+                if self.sampling_ext:
+                    # plain admission into an ext batcher: the fast paths
+                    # below sample the first token unmasked (identical law
+                    # — zero planes are the identity transform); just clear
+                    # whatever the row's previous occupant left in the
+                    # planes
+                    _ext_reset_row(self.counts, self.bias, self.pres,
+                                   self.freq, self.cstate, self.cid, row)
+                # prefix K/V were computed through the BASE model: an
+                # adapter changes every projection, so adapter rows take a
+                # full prefill
+                match = None if adapter_id != 0 else next(
+                    ((pids, pck, pcv) for pids, pck, pcv in self._prefixes
+                     if len(ids) > len(pids)
+                     and tuple(ids[:len(pids)]) == pids), None)
+                if match is not None:
+                    pids, pck, pcv = match
+                    sfx = ids[len(pids):]
+                    Ts = 1
+                    while Ts < len(sfx):
+                        Ts <<= 1
+                    # the p0+Ts row buffer must paste inside the S-slot
+                    # axis; a long suffix after a long prefix can overshoot
+                    # the pow2 pad — fall back to a full prefill rather
+                    # than fail
+                    if len(pids) + Ts > self.S:
+                        match = None
+                if match is not None:
+                    spad = torch.zeros((1, Ts), dtype=torch.int32)
+                    spad[0, :len(sfx)] = torch.as_tensor(sfx,
+                                                         dtype=torch.int32)
+                    _prefill_row_prefix(self.params, self.cfg, pck, pcv,
+                                        spad.to(dev), len(sfx), row, *state,
+                                        *knobs, row_lora)
+                    self.prefix_hits += 1
+                    self.prefix_tokens += len(pids)
+                    METRICS.inc("decode_prefix_hits")
+                    METRICS.inc("decode_prefix_tokens", len(pids))
+                    sp.set(prefix_hit=True, suffix_tokens=len(sfx))
+                else:
+                    _prefill_row(self.params, self.cfg, padded, len(ids), row,
+                                 *state, *knobs, row_lora)
+            # the shared write head must never re-enter a live prompt range
+            # (possible after compaction shrank it): decode writes hit EVERY
+            # row at the shared slot and would clobber this prompt's K/V.
+            self.head = max(self.head, len(ids))
+            self.admissions += 1
+            METRICS.inc("decode_admissions")
+            if self.spec_k:
+                # speculative batchers draft from per-row history and deliver
+                # the prefill-sampled first token at admission
+                _hist_admit(self.hist, padded, len(ids), row, self.tok)
+                return int(self.tok[row])
+            return None
 
     def _finish_admit(self, row: int, rid: int, max_new: int,
                       eos_id: int, q: asyncio.Queue,
@@ -1036,7 +1070,7 @@ class ContinuousBatcher:
             self._slots = [_Slot() for _ in range(self.B)]
             while True:
                 try:
-                    _, _, _, _, q, _, _ = self._pending.get_nowait()
+                    _, _, _, _, q, _, _, _ = self._pending.get_nowait()
                 except asyncio.QueueEmpty:
                     break
                 q.put_nowait(exc)
@@ -1086,61 +1120,67 @@ class ContinuousBatcher:
             # never a wrong token.
             if s.remaining == 0 or int(emitted[-1, i, 0]) < 0:
                 self._retire(i)
-        from ..utils.observability import METRICS
-
         METRICS.inc("decode_steps", self.chunk)
         METRICS.set_gauge("decode_tokens_per_step",
                           self.tokens_out / max(self.steps, 1))
         METRICS.set_gauge("decode_active_rows", len(busy))
 
-    def _step(self, use_k: int, eos_vec: np.ndarray) -> torch.Tensor:
+    def _step(self, use_k: int, eos_vec: np.ndarray,
+              rows: int) -> torch.Tensor:
         """Issue one chunk from an executor thread and return its OUTPUT
         tensor (chunk, B, W) without waiting for the card: a fresh tensor
         no later chunk writes, so its read can float in its own thread
-        while further chunks launch."""
-        eos = torch.as_tensor(eos_vec, device=self.device)
-        base = (self.params, self.cfg, self.chunk)
-        lora = self._lora(self._aid)
-        if self.spec_k and self.sampling_ext:
-            (self.tok, self.pos, self.active, self.counts, self.cstate,
-             out) = _decode_chunk_spec_ext(
-                *base, use_k, self.tok, self.pos, self.active,
-                self.slot_pos, self.hist, self.head, eos, self.ck, self.cv,
-                self.temperature, self.top_k, self.top_p, self.counts,
-                self.bias, self.pres, self.freq, self.cstate, self.cid,
-                self._cbanks, self._gen_for, self.steps, lora)
-            return out                                      # (chunk, B, K+1)
-        if self.spec_k:
-            self.tok, self.pos, self.active, out = _decode_chunk_spec(
-                *base, use_k, self.tok, self.pos, self.active,
-                self.slot_pos, self.hist, self.head, eos, self.ck, self.cv,
-                self.temperature, self.top_k, self.top_p, self._gen_for,
-                self.steps, lora)
-            return out                                      # (chunk, B, K+1)
-        if self.sampling_ext:
-            (self.tok, self.pos, self.active, self.counts, self.cstate,
-             out) = _decode_chunk_ext(
+        while further chunks launch. ``rows``: the busy rows, for its
+        span."""
+        with TRACER.span("batcher.dispatch",
+                         chunk=self.steps // self.chunk, rows=rows):
+            eos = torch.as_tensor(eos_vec, device=self.device)
+            base = (self.params, self.cfg, self.chunk)
+            lora = self._lora(self._aid)
+            if self.spec_k and self.sampling_ext:
+                (self.tok, self.pos, self.active, self.counts, self.cstate,
+                 out) = _decode_chunk_spec_ext(
+                    *base, use_k, self.tok, self.pos, self.active,
+                    self.slot_pos, self.hist, self.head, eos, self.ck,
+                    self.cv, self.temperature, self.top_k, self.top_p,
+                    self.counts,
+                    self.bias, self.pres, self.freq, self.cstate, self.cid,
+                    self._cbanks, self._gen_for, self.steps, lora)
+                return out                          # (chunk, B, K+1)
+            if self.spec_k:
+                self.tok, self.pos, self.active, out = _decode_chunk_spec(
+                    *base, use_k, self.tok, self.pos, self.active,
+                    self.slot_pos, self.hist, self.head, eos, self.ck,
+                    self.cv, self.temperature, self.top_k, self.top_p,
+                    self._gen_for, self.steps, lora)
+                return out                          # (chunk, B, K+1)
+            if self.sampling_ext:
+                (self.tok, self.pos, self.active, self.counts, self.cstate,
+                 out) = _decode_chunk_ext(
+                    *base, self.tok, self.pos, self.active, self.slot_pos,
+                    self.head, self.steps, self.temperature, self.top_k,
+                    self.top_p, eos, self._gen_for, self.ck, self.cv,
+                    self.counts, self.bias, self.pres, self.freq,
+                    self.cstate, self.cid, self._cbanks, lora)
+                return out[:, :, None]              # (chunk, B, 1)
+            self.tok, self.pos, self.active, out = _decode_chunk(
                 *base, self.tok, self.pos, self.active, self.slot_pos,
                 self.head, self.steps, self.temperature, self.top_k,
-                self.top_p, eos, self._gen_for, self.ck, self.cv,
-                self.counts, self.bias, self.pres, self.freq, self.cstate,
-                self.cid, self._cbanks, lora)
-            return out[:, :, None]                          # (chunk, B, 1)
-        self.tok, self.pos, self.active, out = _decode_chunk(
-            *base, self.tok, self.pos, self.active, self.slot_pos,
-            self.head, self.steps, self.temperature, self.top_k, self.top_p,
-            eos, self._gen_for, self.ck, self.cv, lora)
-        return out[:, :, None]                              # (chunk, B, 1)
+                self.top_p, eos, self._gen_for, self.ck, self.cv, lora)
+            return out[:, :, None]                  # (chunk, B, 1)
 
     async def _serve(self) -> None:
         loop = asyncio.get_running_loop()
         # in-flight chunk outputs: (readback future -> np (chunk, B, W),
-        # busy snapshot [(row, rid)], use_k), oldest first
-        inflight: List[Tuple[asyncio.Future, List[Tuple[int, int]], int]] = []
+        # busy snapshot [(row, rid)], use_k, chunk number), oldest first
+        inflight: List[Tuple[asyncio.Future, List[Tuple[int, int]], int,
+                             int]] = []
 
         async def _pop_oldest():
-            fut, busy, use_k = inflight.pop(0)
-            self._process((await fut, busy, use_k))
+            fut, busy, use_k, chunk = inflight.pop(0)
+            emitted = await fut
+            with TRACER.span("batcher.deliver", chunk=chunk):
+                self._process((emitted, busy, use_k))
 
         try:
             while True:
@@ -1149,9 +1189,10 @@ class ContinuousBatcher:
                 for row in self._free_rows():
                     try:
                         (rid, ids, max_new, eos_id, q, adapter_id,
-                         ext) = self._pending.get_nowait()
+                         ext, queued) = self._pending.get_nowait()
                     except asyncio.QueueEmpty:
                         break
+                    queued.close()
                     first = await loop.run_in_executor(
                         None, self._admit, row, rid, ids, adapter_id, ext,
                         eos_id)
@@ -1216,8 +1257,9 @@ class ContinuousBatcher:
                 for i, _ in busy:
                     eos_vec[i] = self._slots[i].eos_id
 
+                chunk = self.steps // self.chunk
                 out = await loop.run_in_executor(None, self._step, use_k,
-                                                 eos_vec)
+                                                 eos_vec, len(busy))
                 self.head += burn
                 self.steps += self.chunk
                 if self.spec_k:
@@ -1225,15 +1267,16 @@ class ContinuousBatcher:
                         self.spec_dispatches += 1
                     else:
                         self.plain_dispatches += 1
-                inflight.append((loop.run_in_executor(None, _readback, out),
-                                 busy, use_k))
+                inflight.append((loop.run_in_executor(None, _readback, out,
+                                                      chunk),
+                                 busy, use_k, chunk))
                 while len(inflight) > self.lookahead:
                     await _pop_oldest()
         finally:
             # surface in-flight readbacks before the loop exits (error
             # path: _run resets device state; an unawaited future that
             # fails later would be dumped as "exception never retrieved")
-            for fut, _, _ in inflight:
+            for fut, _, _, _ in inflight:
                 fut.cancel()
                 try:
                     await fut

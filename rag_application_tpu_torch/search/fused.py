@@ -34,6 +34,7 @@ from ..ops.fused_topk import fused_scan_topk
 from ..ops.quant import quantize_int8
 from ..ops.rrf import INVALID_ID, first_occurrence_mask
 from ..ops.topk import NEG_INF, blocked_topk, gather_rescore, stable_topk
+from ..utils.observability import METRICS, TRACER
 
 
 class FusedSpec(NamedTuple):
@@ -172,52 +173,54 @@ def fused_core(
 
     # --- matryoshka cascade ---
     if spec.matryoshka_dims:
-        if vecs is None:
-            raise ValueError("matryoshka cascade needs the bf16 plane")
-        m = spec.matryoshka_limits
-        vals, ids = corpus_scan(
-            vecs, qb, m[0],
-            prefix_dim=spec.matryoshka_dims[0], inv=inv_norms[:, 0],
-        )
-        for level in range(1, len(spec.matryoshka_dims)):
-            if level >= len(m):
-                break
-            vals, ids = _prefix_rescore(
-                vecs, inv_norms, q, ids, torch.isfinite(vals),
-                spec.matryoshka_dims[level], level, m[level],
+        with TRACER.span("search.cascade", device=q.device):
+            if vecs is None:
+                raise ValueError("matryoshka cascade needs the bf16 plane")
+            m = spec.matryoshka_limits
+            vals, ids = corpus_scan(
+                vecs, qb, m[0],
+                prefix_dim=spec.matryoshka_dims[0], inv=inv_norms[:, 0],
             )
-        vals, ids = _exact_rescore(vecs, q, ids, torch.isfinite(vals),
-                                   spec.dense_limit)
-        branches.append((vals, ids))
+            for level in range(1, len(spec.matryoshka_dims)):
+                if level >= len(m):
+                    break
+                vals, ids = _prefix_rescore(
+                    vecs, inv_norms, q, ids, torch.isfinite(vals),
+                    spec.matryoshka_dims[level], level, m[level],
+                )
+            vals, ids = _exact_rescore(vecs, q, ids, torch.isfinite(vals),
+                                       spec.dense_limit)
+            branches.append((vals, ids))
 
     # --- int8 branch ---
     if spec.use_int8:
-        if spec.scan_prefix_dim and prefix_int8 is not None:
-            # prefix scan table: renormalize the query prefix too
-            qp = q[:, : spec.scan_prefix_dim]
-            qp = qp / torch.clamp(torch.linalg.vector_norm(
-                qp, dim=-1, keepdim=True), min=1e-12)
-            i_vals, i_ids = corpus_scan(prefix_int8, quantize_int8(qp),
-                                        spec.quantized_limit)
-            # prefix scores are coarse: refine with an exact rescore
-            valid = torch.isfinite(i_vals)
-            safe = torch.where(valid, i_ids, 0)
-            rs = gather_rescore(rescore_table, q, safe) \
-                * candidate_rescale(safe)
-            rs = torch.where(valid, rs, NEG_INF)
-            i_vals, pos = stable_topk(rs, min(spec.dense_limit,
-                                              i_ids.shape[-1]))
-            i_ids = torch.gather(i_ids, -1, pos)
-        else:
-            i_vals, i_ids = corpus_scan(
-                int8, quantize_int8(q), spec.quantized_limit,
-                inv=int8_recip if cap_scaled else None)
-            # the scan's values ARE full-dim int8 dots: rank-select the
-            # refine set directly from them
-            i_vals, pos = stable_topk(i_vals, min(spec.dense_limit,
+        with TRACER.span("search.int8", device=q.device):
+            if spec.scan_prefix_dim and prefix_int8 is not None:
+                # prefix scan table: renormalize the query prefix too
+                qp = q[:, : spec.scan_prefix_dim]
+                qp = qp / torch.clamp(torch.linalg.vector_norm(
+                    qp, dim=-1, keepdim=True), min=1e-12)
+                i_vals, i_ids = corpus_scan(prefix_int8, quantize_int8(qp),
+                                            spec.quantized_limit)
+                # prefix scores are coarse: refine with an exact rescore
+                valid = torch.isfinite(i_vals)
+                safe = torch.where(valid, i_ids, 0)
+                rs = gather_rescore(rescore_table, q, safe) \
+                    * candidate_rescale(safe)
+                rs = torch.where(valid, rs, NEG_INF)
+                i_vals, pos = stable_topk(rs, min(spec.dense_limit,
                                                   i_ids.shape[-1]))
-            i_ids = torch.gather(i_ids, -1, pos)
-        branches.append((i_vals, i_ids))
+                i_ids = torch.gather(i_ids, -1, pos)
+            else:
+                i_vals, i_ids = corpus_scan(
+                    int8, quantize_int8(q), spec.quantized_limit,
+                    inv=int8_recip if cap_scaled else None)
+                # the scan's values ARE full-dim int8 dots: rank-select the
+                # refine set directly from them
+                i_vals, pos = stable_topk(i_vals, min(spec.dense_limit,
+                                                      i_ids.shape[-1]))
+                i_ids = torch.gather(i_ids, -1, pos)
+            branches.append((i_vals, i_ids))
 
     # --- sparse BM25 branch ---
     sp_vals = sp_ids = sp_valid = None
@@ -227,63 +230,73 @@ def fused_core(
         n_sparse = doc_packed.shape[0] - 1
         # live ∧ payload filter, row-aligned (None = nothing masked)
         fm = mask[:n_sparse] if mask is not None else None
-        sp_vals, sp_ids = bm25_topk(
-            post_docs, post_w, doc_packed,
-            q_rows, q_terms, q_valid, spec.sparse_limit,
-            pool=spec.sparse_pool, filter_mask=fm,
-        )
+        with TRACER.span("search.bm25", device=q.device):
+            sp_vals, sp_ids = bm25_topk(
+                post_docs, post_w, doc_packed,
+                q_rows, q_terms, q_valid, spec.sparse_limit,
+                pool=spec.sparse_pool, filter_mask=fm,
+            )
         sp_valid = torch.isfinite(sp_vals)
         branches.append((torch.where(sp_valid, 0.0, NEG_INF), sp_ids))
 
     # --- final exact rescore over the deduped union ---
-    all_ids = torch.cat([ids.to(torch.int32) for _, ids in branches], dim=-1)
-    all_valid = torch.cat([torch.isfinite(v) for v, _ in branches], dim=-1)
-    all_ids = torch.where(all_valid, all_ids, INVALID_ID)
-    keep = first_occurrence_mask(all_ids) & (all_ids != INVALID_ID)
-    safe_ids = torch.where(keep, all_ids, 0)
-    scores = gather_rescore(rescore_table, q, safe_ids) \
-        * candidate_rescale(safe_ids)
-    scores = torch.where(keep, scores, NEG_INF)
+    with TRACER.span("search.union", device=q.device):
+        all_ids = torch.cat([ids.to(torch.int32) for _, ids in branches],
+                            dim=-1)
+        all_valid = torch.cat([torch.isfinite(v) for v, _ in branches],
+                              dim=-1)
+        all_ids = torch.where(all_valid, all_ids, INVALID_ID)
+        keep = first_occurrence_mask(all_ids) & (all_ids != INVALID_ID)
+        safe_ids = torch.where(keep, all_ids, 0)
+        scores = gather_rescore(rescore_table, q, safe_ids) \
+            * candidate_rescale(safe_ids)
+        scores = torch.where(keep, scores, NEG_INF)
 
-    if spec.final_fusion == "dbsf" and sp_ids is not None:
-        # distribution-based score fusion: per-query min-max dense scores
-        # over the kept union plus ratio-to-max BM25 scores
-        big = 3e38
-        lo = torch.amin(torch.where(keep, scores, big), dim=-1,
-                        keepdim=True)
-        hi = torch.amax(torch.where(keep, scores, -big), dim=-1,
-                        keepdim=True)
-        den = hi - lo
-        dn = torch.where(den > 1e-9,
-                         (scores - lo) / torch.clamp(den, min=1e-9), 1.0)
-        sp_member = (all_ids[:, :, None] == sp_ids[:, None, :]) \
-            & sp_valid[:, None, :]
-        shi = torch.amax(torch.where(sp_valid, sp_vals, 0.0), dim=-1,
-                         keepdim=True)
-        s_norm = torch.clamp(sp_vals, min=0.0) / torch.clamp(shi, min=1e-9)
-        sval = torch.where(sp_member, s_norm[:, None, :], 0.0).sum(dim=-1)
-        # dense score as an epsilon tie-break; -inf slots stay -inf
-        scores = torch.where(keep, dn + sval, NEG_INF) + \
-            torch.where(keep, scores * 1e-6, scores)
+        if spec.final_fusion == "dbsf" and sp_ids is not None:
+            # distribution-based score fusion: per-query min-max dense
+            # scores over the kept union plus ratio-to-max BM25 scores
+            big = 3e38
+            lo = torch.amin(torch.where(keep, scores, big), dim=-1,
+                            keepdim=True)
+            hi = torch.amax(torch.where(keep, scores, -big), dim=-1,
+                            keepdim=True)
+            den = hi - lo
+            dn = torch.where(den > 1e-9,
+                             (scores - lo) / torch.clamp(den, min=1e-9),
+                             1.0)
+            sp_member = (all_ids[:, :, None] == sp_ids[:, None, :]) \
+                & sp_valid[:, None, :]
+            shi = torch.amax(torch.where(sp_valid, sp_vals, 0.0), dim=-1,
+                             keepdim=True)
+            s_norm = torch.clamp(sp_vals, min=0.0) \
+                / torch.clamp(shi, min=1e-9)
+            sval = torch.where(sp_member, s_norm[:, None, :],
+                               0.0).sum(dim=-1)
+            # dense score as an epsilon tie-break; -inf slots stay -inf
+            scores = torch.where(keep, dn + sval, NEG_INF) + \
+                torch.where(keep, scores * 1e-6, scores)
 
-    if spec.final_fusion == "rrf" and sp_ids is not None:
-        # reciprocal-rank fusion of the dense-exact ranking (position of
-        # each kept slot in the stable descending order) with BM25 ranks
-        order = torch.argsort(-scores, dim=-1, stable=True)
-        dense_rank = torch.argsort(order, dim=-1, stable=True).float()
-        rrf = 1.0 / (spec.rrf_k + 1.0 + dense_rank)
-        sp_member = (all_ids[:, :, None] == sp_ids[:, None, :]) \
-            & sp_valid[:, None, :]
-        sp_rank = sp_member.to(torch.int32).argmax(dim=-1).float()
-        in_sparse = sp_member.any(dim=-1)
-        rrf = rrf + torch.where(in_sparse,
-                                1.0 / (spec.rrf_k + 1.0 + sp_rank), 0.0)
-        scores = torch.where(keep, rrf, NEG_INF) + \
-            torch.where(keep, scores * 1e-6, scores)
+        if spec.final_fusion == "rrf" and sp_ids is not None:
+            # reciprocal-rank fusion of the dense-exact ranking (position
+            # of each kept slot in the stable descending order) with BM25
+            # ranks
+            order = torch.argsort(-scores, dim=-1, stable=True)
+            dense_rank = torch.argsort(order, dim=-1, stable=True).float()
+            rrf = 1.0 / (spec.rrf_k + 1.0 + dense_rank)
+            sp_member = (all_ids[:, :, None] == sp_ids[:, None, :]) \
+                & sp_valid[:, None, :]
+            sp_rank = sp_member.to(torch.int32).argmax(dim=-1).float()
+            in_sparse = sp_member.any(dim=-1)
+            rrf = rrf + torch.where(in_sparse,
+                                    1.0 / (spec.rrf_k + 1.0 + sp_rank), 0.0)
+            scores = torch.where(keep, rrf, NEG_INF) + \
+                torch.where(keep, scores * 1e-6, scores)
 
-    top_scores, pos = stable_topk(scores, min(spec.k, all_ids.shape[-1]))
-    top_ids = torch.gather(all_ids, -1, pos)
-    top_ids = torch.where(torch.isfinite(top_scores), top_ids, INVALID_ID)
+        top_scores, pos = stable_topk(scores,
+                                      min(spec.k, all_ids.shape[-1]))
+        top_ids = torch.gather(all_ids, -1, pos)
+        top_ids = torch.where(torch.isfinite(top_scores), top_ids,
+                              INVALID_ID)
     return top_scores, top_ids
 
 
@@ -315,6 +328,10 @@ class FusedSearcher:
         self.scan_strip_outputs = scan_strip_outputs \
             if scan_strip_outputs is not None \
             else getattr(f, "scan_strip_outputs", False)
+        # the spans' batch number: the n-th batch prepared is the n-th
+        # searched (in order, as one caller sends them)
+        self._prepared = 0
+        self._searched = 0
 
     def _resolved_engine(self) -> Tuple[str, int]:
         """(impl, block_rows) with "auto" and the dim clamp applied."""
@@ -335,22 +352,26 @@ class FusedSearcher:
         ``upload_dtype="float16"`` halves the upload bytes; ``"int8"``
         quantizes each row at 127/max|x| before the upload (the funnel
         renormalizes every query, which cancels the per-row scale)."""
-        q = torch.as_tensor(query_embeddings)
-        if upload_dtype == "int8":
-            q32 = q.float()
-            s = torch.amax(q32.abs(), dim=-1, keepdim=True)
-            q = torch.clamp(torch.round(
-                q32 * (127.0 / torch.clamp(s, min=1e-12))),
-                -127, 127).to(torch.int8)
-        elif upload_dtype is not None:
-            q = q.to(getattr(torch, str(np.dtype(upload_dtype))))
-        elif q.dtype not in (torch.float16, torch.float32):
-            q = q.float()
-        q = q.to(self.dense.device)
-        sparse_queries = None
-        if (self.sparse is not None and query_texts is not None
-                and len(self.sparse) > 0):
-            sparse_queries = self.sparse.encode_queries(list(query_texts))
+        self._prepared += 1
+        with TRACER.span("search.prepare", batch=self._prepared):
+            q = torch.as_tensor(query_embeddings)
+            if upload_dtype == "int8":
+                q32 = q.float()
+                s = torch.amax(q32.abs(), dim=-1, keepdim=True)
+                q = torch.clamp(torch.round(
+                    q32 * (127.0 / torch.clamp(s, min=1e-12))),
+                    -127, 127).to(torch.int8)
+            elif upload_dtype is not None:
+                q = q.to(getattr(torch, str(np.dtype(upload_dtype))))
+            elif q.dtype not in (torch.float16, torch.float32):
+                q = q.float()
+            with TRACER.span("search.upload"):
+                q = q.to(self.dense.device)
+            sparse_queries = None
+            if (self.sparse is not None and query_texts is not None
+                    and len(self.sparse) > 0):
+                sparse_queries = self.sparse.encode_queries(
+                    list(query_texts))
         return q, sparse_queries
 
     def _build_spec(self, k: int, *, use_sparse: bool,
@@ -394,25 +415,27 @@ class FusedSearcher:
                         use_matryoshka: bool = True,
                         funnel: Optional[FunnelConfig] = None):
         """Run the funnel on pre-staged query tensors."""
-        from ..utils.observability import METRICS
-
         q, sparse_queries = prepared
         METRICS.inc("search_queries", q.shape[0])
-        d = self.dense
-        spec, sparse_arrays = self._build_spec(
-            k, use_sparse=sparse_queries is not None,
-            use_matryoshka=use_matryoshka,
-            has_filter=filter_mask is not None, funnel=funnel)
-        # provably all-live tables drop the mask plane from the scan
-        live = None if (filter_mask is None and d.fully_live) else d.live
-        fm = (torch.as_tensor(filter_mask, device=d.device)
-              if filter_mask is not None else None)
-        return fused_core(
-            d.vecs, d.int8, d.inv_norms, live, d.size, q, fm,
-            sparse_arrays, sparse_queries, spec,
-            prefix_int8=d.prefix_int8,
-            int8_recip=getattr(d, "int8_recip", None),
-        )
+        METRICS.inc("search_batches")
+        self._searched += 1
+        with TRACER.span("search.funnel", batch=self._searched):
+            d = self.dense
+            spec, sparse_arrays = self._build_spec(
+                k, use_sparse=sparse_queries is not None,
+                use_matryoshka=use_matryoshka,
+                has_filter=filter_mask is not None, funnel=funnel)
+            # provably all-live tables drop the mask plane from the scan
+            live = None if (filter_mask is None and d.fully_live) \
+                else d.live
+            fm = (torch.as_tensor(filter_mask, device=d.device)
+                  if filter_mask is not None else None)
+            return fused_core(
+                d.vecs, d.int8, d.inv_norms, live, d.size, q, fm,
+                sparse_arrays, sparse_queries, spec,
+                prefix_int8=d.prefix_int8,
+                int8_recip=getattr(d, "int8_recip", None),
+            )
 
     # ------------------------------------------------------ tokens wire
     #
@@ -437,6 +460,7 @@ class FusedSearcher:
         """Upload int32 token ids (+ host-side sparse query encoding).
         ``attn_mask`` overrides the default ``ids != pad_id`` mask."""
         dev = self.dense.device
+        self._prepared += 1
         ids = torch.as_tensor(token_ids).to(dev, torch.int32)
         if attn_mask is not None:
             attn_mask = torch.as_tensor(attn_mask).to(dev, torch.bool)
@@ -473,7 +497,8 @@ class FusedSearcher:
     def search(self, query_embeddings, query_texts=None, k: int = 10, *,
                filter_mask=None, use_matryoshka: bool = True,
                funnel: Optional[FunnelConfig] = None):
-        prepared = self.prepare(query_embeddings, query_texts)
-        return self.search_prepared(
-            prepared, k, filter_mask=filter_mask,
-            use_matryoshka=use_matryoshka, funnel=funnel)
+        with TRACER.span("search.batch", batch=self._prepared + 1):
+            prepared = self.prepare(query_embeddings, query_texts)
+            return self.search_prepared(
+                prepared, k, filter_mask=filter_mask,
+                use_matryoshka=use_matryoshka, funnel=funnel)

@@ -1,5 +1,5 @@
 from .runtime import DeviceLike, cdiv, full_f32_matmul, resolve_device, round_up
-from .observability import METRICS, Metrics, device_trace
+from .observability import METRICS, TRACER, Metrics
 
 __all__ = [
     "DeviceLike",
@@ -9,5 +9,5 @@ __all__ = [
     "round_up",
     "METRICS",
     "Metrics",
-    "device_trace",
+    "TRACER",
 ]

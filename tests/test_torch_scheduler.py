@@ -85,8 +85,14 @@ def _prompts(n, rng):
             for _ in range(n)]
 
 
+# the counters both batchers keep (the port's `stats()` adds admissions
+# and prefix reuse, held in tests/test_torch_tracing.py)
+SHARED_STATS = ("steps", "compactions", "tokens_out", "tokens_per_step")
+
+
 def _counters(b):
-    return (b.stats(), b.prefix_hits, b.spec_dispatches, b.plain_dispatches)
+    stats = {k: b.stats()[k] for k in SHARED_STATS}
+    return (stats, b.prefix_hits, b.spec_dispatches, b.plain_dispatches)
 
 
 def run_both(kw, jobs, cfg=CFG, prefix=None):
