@@ -1,6 +1,8 @@
 """ctypes wrapper exposing the C analyzer with the Python Analyzer API.
 
-Copy of `rag_application_tpu/index/native_analyzer.py`.
+Copy of `rag_application_tpu/index/native_analyzer.py`, with one added
+method, `encode_queries` (the C pass from a batch of query texts to
+fixed-width term rows); the other methods keep the copy's semantics.
 
 Drop-in for `index.analyzer.Analyzer` (same vocabulary semantics:
 insertion-ordered consecutive ids). `make_analyzer()` picks the native
@@ -11,7 +13,7 @@ Python otherwise — ingest code never needs to care.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -62,21 +64,36 @@ class NativeAnalyzer:
 
     def encode_batch(self, texts: Sequence[str], *, grow: bool):
         """Vectorized batch encode -> (flat ids int32, offsets int64)."""
-        blobs = [t.encode("utf-8", errors="ignore") for t in texts]
-        offsets = np.zeros(len(blobs) + 1, dtype=np.int64)
-        np.cumsum([len(b) for b in blobs], out=offsets[1:])
-        buf = b"".join(blobs)
-        cap = max(16, len(buf) // 2 + 8 * len(blobs) + 8)
+        buf, offsets = _pack(texts)
+        n = len(offsets) - 1
+        cap = max(16, len(buf) // 2 + 8 * n + 8)
         out_ids = np.empty(cap, dtype=np.int32)
-        out_offsets = np.zeros(len(blobs) + 1, dtype=np.int64)
+        out_offsets = np.zeros(n + 1, dtype=np.int64)
         total = self._lib.analyzer_encode_batch(
-            self._h, buf,
-            offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            len(blobs), int(grow),
-            out_ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), cap,
-            out_offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            self._h, buf, _ptr(offsets, ctypes.c_int64), n, int(grow),
+            _ptr(out_ids, ctypes.c_int32), cap,
+            _ptr(out_offsets, ctypes.c_int64),
         )
         return out_ids[:total].copy(), out_offsets
+
+    def encode_queries(self, texts: Sequence[str], t: int, pad_row: int
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Query texts -> (rows, terms, valid), each (n, t): a query's
+        known terms (unseen ones dropped, the vocabulary left as it is),
+        each once in first-occurrence order, at most ``t``; the rest of
+        its row is ``pad_row``, -2 and False. One C call, without the
+        interpreter lock, so threads may encode at once."""
+        buf, offsets = _pack(texts)
+        n = len(offsets) - 1
+        rows = np.empty((n, t), dtype=np.int32)
+        terms = np.empty((n, t), dtype=np.int32)
+        valid = np.empty((n, t), dtype=np.bool_)
+        self._lib.analyzer_encode_queries(
+            self._h, buf, _ptr(offsets, ctypes.c_int64), n, t, pad_row,
+            _ptr(rows, ctypes.c_int32), _ptr(terms, ctypes.c_int32),
+            _ptr(valid, ctypes.c_uint8),
+        )
+        return rows, terms, valid
 
     def tokenize(self, text: str) -> List[str]:
         # side-effect free like Analyzer.tokenize (the previous grow=True
@@ -91,6 +108,18 @@ class NativeAnalyzer:
         if self.stem:
             tokens = [light_stem(t) for t in tokens]
         return tokens
+
+
+def _pack(texts: Sequence[str]) -> Tuple[bytes, np.ndarray]:
+    """Texts as one UTF-8 blob and its n + 1 byte offsets."""
+    blobs = [t.encode("utf-8", errors="ignore") for t in texts]
+    offsets = np.zeros(len(blobs) + 1, dtype=np.int64)
+    np.cumsum([len(b) for b in blobs], out=offsets[1:])
+    return b"".join(blobs), offsets
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
 
 
 def make_analyzer(*, stem: bool = True, stopwords: bool = True,

@@ -12,6 +12,10 @@ reference's, copied):
     (term << 16 | tf) matrix by `_expand_core`
 
 Inserts/deletes mark the index dirty; the next search rebuilds.
+
+The query encode departs from the reference's per-query loop: with the C
+analyzer, `encode_queries` packs a batch's term rows in one native pass
+(the same arrays).
 """
 
 from __future__ import annotations
@@ -25,19 +29,14 @@ import torch
 
 from ..config import SparseConfig
 from ..ops.bm25 import bm25_topk
-from ..utils import TRACER, DeviceLike, resolve_device, round_up
+from ..utils import (METRICS, TRACER, DeviceLike, resolve_device,
+                     round_up)
 from .analyzer import Analyzer
 
 
 def bm25_idf(n_docs: int, df: np.ndarray) -> np.ndarray:
     """Lucene/fastembed BM25 idf: ln(1 + (N - df + 0.5)/(df + 0.5))."""
     return np.log(1.0 + (n_docs - df + 0.5) / (df + 0.5))
-
-
-def pd_unique(a: np.ndarray) -> np.ndarray:
-    """First-occurrence-order unique for small int arrays (query terms)."""
-    _, idx = np.unique(a, return_index=True)
-    return a[np.sort(idx)]
 
 
 def _expand_core(packed_tt: torch.Tensor, lens: torch.Tensor,
@@ -396,27 +395,24 @@ class SparseIndex:
     def encode_queries(self, queries: Sequence[str]
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Queries -> (q_rows, q_terms, q_valid) on the index device,
-        fixed width T."""
-        with TRACER.span("search.encode"):
+        fixed width T: each query's known terms, each once in
+        first-occurrence order, at most T. The C analyzer packs the rows
+        in one native pass; the Python one in a loop a query."""
+        with TRACER.span("search.encode") as span:
             t = self.cfg.max_query_terms
             dv = self.device_arrays()
             v_pad = dv["v_pad"]
             n = len(queries)
-            q_rows = np.full((n, t), v_pad - 1, dtype=np.int32)
-            q_terms = np.full((n, t), -2, dtype=np.int32)
-            q_valid = np.zeros((n, t), dtype=bool)
-            encode_batch = getattr(self.analyzer, "encode_batch", None)
-            if encode_batch is not None:
-                flat, offsets = encode_batch(queries, grow=False)
-                for i in range(n):
-                    seg = flat[offsets[i]:offsets[i + 1]]
-                    # first occurrence order, truncated to T
-                    tids = pd_unique(seg)[:t] if seg.size else seg
-                    m = len(tids)
-                    q_rows[i, :m] = tids
-                    q_terms[i, :m] = tids
-                    q_valid[i, :m] = True
+            encode_queries = getattr(self.analyzer, "encode_queries", None)
+            if encode_queries is not None:
+                path = "native"
+                q_rows, q_terms, q_valid = encode_queries(queries, t,
+                                                          v_pad - 1)
             else:
+                path = "python"
+                q_rows = np.full((n, t), v_pad - 1, dtype=np.int32)
+                q_terms = np.full((n, t), -2, dtype=np.int32)
+                q_valid = np.zeros((n, t), dtype=bool)
                 for i, qtext in enumerate(queries):
                     tids = list(dict.fromkeys(
                         self.analyzer.encode(qtext, grow=False)))[:t]
@@ -424,6 +420,8 @@ class SparseIndex:
                         q_rows[i, j] = tid
                         q_terms[i, j] = tid
                         q_valid[i, j] = True
+            METRICS.inc("bm25_queries_encoded", n, path=path)
+            span.set(path=path, queries=n)
             dev = self.device
             return (torch.from_numpy(q_rows).to(dev),
                     torch.from_numpy(q_terms).to(dev),

@@ -1,7 +1,8 @@
 """Native (C) components, loaded via ctypes.
 
 Copy of `rag_application_tpu/native/__init__.py` (the analyzer; the
-WordPiece binding is `wordpiece_lib.py`).
+WordPiece binding is `wordpiece_lib.py`), which also declares the port's
+added analyzer entry, `analyzer_encode_queries`.
 
 The shared library is built lazily on first use with the system
 compiler (cc/g++ are part of the target image; pybind11 is not, hence
@@ -94,6 +95,13 @@ def load() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
         ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.analyzer_encode_queries.restype = None
+    lib.analyzer_encode_queries.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int32, ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_uint8),
     ]
     _lib = lib
     return lib

@@ -117,6 +117,18 @@ def apps(pair=None, **kw):
     return j, t
 
 
+# `/metrics` families the port keeps and the JAX package has no
+# counterpart for: dropped from the port's exposition, the rest is held
+# equal
+PORT_ONLY_METRICS = ("bm25_queries_encoded_total{",)
+
+
+def shared_metrics(text: str) -> str:
+    lines = text.split("\n")[:-1]  # `Metrics.render` ends every line
+    return "\n".join(line for line in lines
+                     if not line.startswith(PORT_ONLY_METRICS)) + "\n"
+
+
 def norm(x):
     """A response body with the random and clock-made parts taken out."""
     if isinstance(x, dict):
@@ -179,7 +191,10 @@ class Dual:
         assert rt.status_code == rj.status_code, (path, rt.text, rj.text)
         assert rt.headers.get("content-type") == rj.headers.get(
             "content-type")
-        assert_close(norm(parsed(rt)), norm(parsed(rj)), path)
+        got = parsed(rt)
+        if path == "/metrics":
+            got = shared_metrics(got)
+        assert_close(norm(got), norm(parsed(rj)), path)
         self.pairs += 1
         return rt
 
