@@ -328,6 +328,27 @@
    half the batch) must break those limits. Then `dryrun_multichip(4)`
    on the mesh's devices.
 
+14. `[latent]`, DeepSeek-V2-Lite's block at its published widths
+   (benchmark/configs/deepseek-v2-lite.json): `[latent-check]` the
+   routed experts' kernels (`ops/moe.py::moe_experts`, csrc/moe_experts.cu)
+   against their plain version at a decode step's 64 tokens and a
+   prefill's 4,096 (64 experts, top-6, int8 weights), and the decode
+   kernel at the cell's latent geometry (B 64, S 4,608, one kv head of
+   576 under 16 query heads, MLA's softmax scale, the latent passed as
+   key and as value), each within 4 (experts) or 2 (attention) bf16 ulps
+   of the plain output's largest value and counted one launch;
+   `[latent-time]` kernel, plain and bound times at those shapes;
+   `[latent-batch]` `LocalLLM.enable_batching(slots=64)` over the model
+   cut to its dense layer and two expert layers (widths unchanged, int8
+   weights, int8 latent cache, the kernel on): a registered 256-token
+   prefix, 64 requests of 200-500 more tokens and 48 new each, a
+   compaction forced by the horizon; both wrappers stood in for by
+   checks that hold every call made outside a graph capture (prefills,
+   a cache's first decode step) to the plain version; launch counts set
+   to 0 just before the run and read after it (replayed steps add their
+   captured launches); 4 requests' served tokens at 4 steps each within
+   GEN_LOGIT_ATOL of the top of a teacher-forced prefill's logits.
+
 Prints one `{"kernels": [...]}` line, and as its last line
 `{"ok": true, "device": {...}}`. Exits non-zero on any failure, and
 when CUDA is not available.
@@ -399,6 +420,11 @@ corpus-axis sharding.
 runs steps 1-2 and then step 13 alone (building the [gen-main] weights;
 [tp-batch] runs its one-device reference itself), for work on tensor
 parallelism.
+
+    python3 chip_smoke.py --latent
+
+runs steps 1-2 and then step 14 alone, for work on latent attention,
+the expert layer or their kernels.
 """
 
 from __future__ import annotations
@@ -608,6 +634,14 @@ TP_MODELS = (2, 4)
 # 1,198 s with [tp-gen] at 32 on a slow host ([tp] 164.2 s of it)
 TP_NEW = 16             # [tp-gen]: new tokens at [gen-main]'s batch and prompt
 TP_LOGIT_ATOL = GEN_LOGIT_ATOL  # TP vs one device: bf16 sums in other orders
+
+# [latent]: DeepSeek-V2-Lite (MLA + experts) at its published widths
+LATENT_CONFIG = "benchmark/configs/deepseek-v2-lite.json"
+LATENT_LAYERS = 3          # [latent-batch]: the dense layer + 2 expert layers
+LATENT_SLOTS, LATENT_PAD, LATENT_HORIZON = 64, 1024, 32
+LATENT_PREFIX, LATENT_NEW = 256, 48
+LATENT_MOE_ULPS = 4        # experts: h and y rounded to bf16 after f32 sums
+LATENT_ATTN_ULPS = 2       # as checked_attn holds the decode kernel
 TP_ATTN_CHECKS = 88     # decode_attn launches held to plain (4 steps x 22)
 TP_SPEC_K = 2           # [tp-batch]'s speculative batcher, as the dry run's
 TP_BATCH_NEW = 64       # [tp-batch]: new tokens a chat, held to [batch]'s first
@@ -7779,6 +7813,272 @@ def tp_only(dev, card) -> int:
     return 0
 
 
+# ------------------------------------------------------------------ [latent]
+
+
+def latent_config():
+    """DeepSeek-V2-Lite's `config.json` (as the benchmark runs it) and the
+    port's `DecoderConfig` of it."""
+    import os
+
+    from benchmark.drivers.generate_mla_moe import decoder_config
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        LATENT_CONFIG)
+    with open(path) as f:
+        raw = json.load(f)
+    return raw, decoder_config(raw)
+
+
+def latent_kernel_inputs(dev, raw):
+    """Int8 experts at the published widths and, at 64 and 4,096 tokens,
+    bf16 activations with softmax top-6 routing; the decode kernel's
+    inputs at the cell's latent geometry."""
+    import torch
+
+    from rag_application_tpu_torch.models import decoder as dec
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    E, H, Fw, k = (raw["n_routed_experts"], raw["hidden_size"],
+                   raw["moe_intermediate_size"], raw["num_experts_per_tok"])
+    w = dec.quantize_decoder_params({
+        "e_gate": torch.randn(E, H, Fw, device=dev, generator=g) / H ** 0.5,
+        "e_up": torch.randn(E, H, Fw, device=dev, generator=g) / H ** 0.5,
+        "e_down": torch.randn(E, Fw, H, device=dev, generator=g)
+        / Fw ** 0.5})
+    moe = {}
+    for T in (64, 4096):
+        x = torch.randn(T, H, device=dev, generator=g).to(torch.bfloat16)
+        probs = torch.softmax(torch.randn(T, E, device=dev, generator=g), -1)
+        wts, ids = torch.topk(probs, k, dim=-1)
+        moe[T] = (x, ids, wts, w["e_gate"], w["e_up"], w["e_down"])
+    B, S, G = LATENT_SLOTS, 4608, raw["num_attention_heads"]
+    hd = raw["kv_lora_rank"] + raw["qk_rope_head_dim"]
+    lat = dec._kv_quantize(torch.randn(B, S, 1, hd, device=dev, generator=g))
+    q = torch.randn(B, 1, 1, G, hd, device=dev,
+                    generator=g).to(torch.bfloat16)
+    vis = torch.randint(1500, 4000, (B, 1), device=dev, generator=g)
+    mask = torch.arange(S, device=dev)[None] < vis
+    return moe, (q, lat, mask)
+
+
+def moe_bound_ms(args) -> float:
+    """The expert kernels' least time: the int8 codes and scales of the
+    experts reached, x, h and y, at the HBM bandwidth, or the products at
+    the bf16 peak, whichever is longer."""
+    import torch
+
+    x, ids, _, wg, _, _ = args
+    E, H, Fw = wg["q"].shape
+    T, k = ids.shape
+    hit = int(torch.zeros(E, device=x.device).scatter_(
+        0, ids.reshape(-1), 1).sum())
+    nbytes = hit * 3 * (H * Fw + Fw * 4) + T * H * 2 + T * k * (Fw + H) * 4
+    flops = 2.0 * 3 * H * Fw * T * k
+    return 1e3 * max(nbytes / HBM_BYTES_S, flops / BF16_OPS_S)
+
+
+def latent_kernels(dev, raw, cfg, card):
+    """[latent-check] and [latent-time]; returns ((moe err, moe launches,
+    moe times), (attn err, attn launches))."""
+    import torch
+
+    from rag_application_tpu_torch.models import mla
+    from rag_application_tpu_torch.ops import decode_attn as da
+    from rag_application_tpu_torch.ops import moe as omoe
+
+    moe, (q, lat, mask) = latent_kernel_inputs(dev, raw)
+    moe_err, times = 0.0, {}
+    for T, args in moe.items():
+        omoe.moe_experts.launches = 0
+        got = omoe.moe_experts(*args)
+        if omoe.moe_experts.launches != 1:
+            raise AssertionError(f"[latent-check] moe_experts T {T}: "
+                                 f"{omoe.moe_experts.launches} launches")
+        want = omoe.moe_experts_plain(*args)
+        err = (got.float() - want.float()).abs().max().item()
+        amax = want.float().abs().max().item()
+        if not err <= LATENT_MOE_ULPS * bf16_ulp(amax):
+            raise AssertionError(f"[latent-check] moe_experts T {T} != "
+                                 f"plain: {err} (max {amax})")
+        moe_err = max(moe_err, err)
+        ms = cuda_ms(lambda: omoe.moe_experts(*args), reps=20)
+        plain_ms = cuda_ms(lambda: omoe.moe_experts_plain(*args), reps=3)
+        times[T] = (ms, plain_ms, moe_bound_ms(args))
+        log(f"[latent-check] moe_experts T {T} x top-{args[1].shape[1]}: "
+            f"max abs err {err:.3g} (max {amax:.3g}, block rows "
+            f"{omoe.block_rows(args[1].numel())})")
+        log(f"[latent-time] moe_experts T {T}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {times[T][2]:.4f} ms ({card})")
+    scale = mla.softmax_scale(cfg)
+    da.decode_attend_int8.launches = 0
+    got = da.decode_attend_int8(q, lat, lat, mask, scale)
+    if da.decode_attend_int8.launches != 1:
+        raise AssertionError("[latent-check] decode_attn: "
+                             f"{da.decode_attend_int8.launches} launches")
+    want = da.decode_attend_int8_plain(q, lat, lat, mask, scale)
+    attn_err = (got.float() - want.float()).abs().max().item()
+    amax = want.float().abs().max().item()
+    if not attn_err <= LATENT_ATTN_ULPS * bf16_ulp(amax):
+        raise AssertionError(f"[latent-check] latent decode_attn != plain: "
+                             f"{attn_err} (max {amax})")
+    B, S, _, hd = lat["q"].shape
+    G = q.shape[3]
+    ms = cuda_ms(lambda: da.decode_attend_int8(q, lat, lat, mask, scale),
+                 reps=20)
+    plain_ms = cuda_ms(lambda: da.decode_attend_int8_plain(
+        q, lat, lat, mask, scale), reps=3)
+    slots = int(mask.sum())
+    bound = 1e3 * (slots * (2 * hd + 8 + 1) + B * G * hd * 4) / HBM_BYTES_S
+    log(f"[latent-check] decode_attn B {B} S {S} KVH 1 G {G} hd {hd} scale "
+        f"{scale:.5f}: max abs err {attn_err:.3g} (max {amax:.3g})")
+    log(f"[latent-time] decode_attn at the latent geometry: kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms (each latent "
+        f"read as K and as V; chunk {da._pick_chunk(B, 1, G, S, hd)}) "
+        f"({card})")
+    return (moe_err, 2, times), (attn_err, 1)
+
+
+def checked_kernel(label, real, plain, ulps):
+    """A stand-in for a kernel wrapper that holds each call made outside
+    a graph capture to ``plain`` (a call inside one only records the
+    kernel) and keeps its own launch count."""
+    import torch
+
+    def fn(*args):
+        out = real(*args)
+        if not torch.cuda.is_current_stream_capturing():
+            want = plain(*args)
+            err = (out.float() - want.float()).abs().max().item()
+            amax = want.float().abs().max().item()
+            if not err <= ulps * bf16_ulp(amax):
+                raise AssertionError(f"{label} != plain: {err} (max {amax})")
+            fn.err, fn.checked = max(fn.err, err), fn.checked + 1
+        return out
+
+    fn.launches, fn.err, fn.checked = 0, 0.0, 0
+    return fn
+
+
+def latent_batch(dev, raw, cfg, card):
+    """[latent-batch]; returns ((moe err, moe launches), (attn err, attn
+    launches))."""
+    import asyncio
+
+    import torch
+
+    from rag_application_tpu_torch.llm.local import LocalLLM
+    from rag_application_tpu_torch.models import decoder as dec
+    from rag_application_tpu_torch.ops import decode_attn as da
+    from rag_application_tpu_torch.ops import moe as omoe
+
+    cfg = dataclasses.replace(cfg, num_layers=LATENT_LAYERS)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(7)
+    params = dec.quantize_decoder_params(dec.init_decoder_params(g, cfg,
+                                                                 dev))
+    torch.cuda.synchronize()
+    log(f"[latent-batch] {LATENT_LAYERS} layers (1 dense, "
+        f"{LATENT_LAYERS - 1} expert) at the published widths built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(24)
+    V = cfg.vocab_size
+    prefix = [int(t) for t in rng.integers(3, V, LATENT_PREFIX)]
+    prompts = [prefix + [int(t) for t in rng.integers(
+        3, V, int(rng.integers(200, 500)))] for _ in range(LATENT_SLOTS)]
+    llm = LocalLLM(params, cfg, None, eos_id=raw["eos_token_id"],
+                   device=dev)
+    batcher = llm.enable_batching(slots=LATENT_SLOTS, prompt_pad=LATENT_PAD,
+                                  horizon=LATENT_HORIZON, chunk=8,
+                                  temperature=0.0)
+    batcher.register_prefix(prefix)
+    moe_fn = checked_kernel("[latent-batch] moe_experts", omoe.moe_experts,
+                            omoe.moe_experts_plain, LATENT_MOE_ULPS)
+    attn_fn = checked_kernel("[latent-batch] decode_attn",
+                             da.decode_attend_int8,
+                             da.decode_attend_int8_plain, LATENT_ATTN_ULPS)
+
+    async def run():
+        return await asyncio.gather(*[batcher.submit(p, max_new=LATENT_NEW)
+                                      for p in prompts])
+
+    real = omoe.moe_experts, da.decode_attend_int8
+    omoe.moe_experts, da.decode_attend_int8 = moe_fn, attn_fn
+    try:
+        moe_fn.launches = attn_fn.launches = 0
+        t0 = time.perf_counter()
+        outs = asyncio.run(run())
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        omoe.moe_experts, da.decode_attend_int8 = real
+    st = batcher.stats()
+    if any(len(o) != LATENT_NEW for o in outs):
+        raise AssertionError("[latent-batch] a request ended early")
+    if not (st["compactions"] > 0 and st["prefix_hits"] == LATENT_SLOTS):
+        raise AssertionError(f"[latent-batch] stats {st}")
+    # every decode step runs the decode kernel in each layer and the
+    # expert kernels in each expert layer; each prefill the latter too
+    if attn_fn.launches != LATENT_LAYERS * st["steps"]:
+        raise AssertionError(f"[latent-batch] decode_attn launches "
+                             f"{attn_fn.launches}, steps {st['steps']}")
+    if moe_fn.launches < (LATENT_LAYERS - 1) * st["steps"]:
+        raise AssertionError(f"[latent-batch] moe_experts launches "
+                             f"{moe_fn.launches}, steps {st['steps']}")
+    if not (moe_fn.checked and attn_fn.checked):
+        raise AssertionError("[latent-batch] no call held to plain")
+    # served tokens from replayed steps against a teacher-forced prefill
+    n = len(prompts)
+    picks = [(r, j) for r in (0, n // 4, n // 2, n - 1)
+             for j in (1, 15, 31, LATENT_NEW - 1)]
+    ctx = [prompts[r] + outs[r][:j] for r, j in picks]
+    worst = 0.0
+    for lo in range(0, len(ctx), 8):
+        logits = last_logits(params, cfg, ctx[lo:lo + 8], dev)
+        for i, (r, j) in enumerate(picks[lo:lo + 8]):
+            gap = (logits[i].max() - logits[i, outs[r][j]]).item()
+            worst = max(worst, gap)
+            if gap > GEN_LOGIT_ATOL:
+                raise AssertionError(f"[latent-batch] request {r} step {j}: "
+                                     f"served token {gap:.4f} below the top")
+    log(f"[latent-batch] {LATENT_SLOTS} requests x {LATENT_NEW} new in "
+        f"{run_s:.1f} s: steps {st['steps']}, compactions "
+        f"{st['compactions']}, prefix hits {st['prefix_hits']}; launches "
+        f"decode_attn {attn_fn.launches}, moe_experts {moe_fn.launches}; "
+        f"calls held to plain {attn_fn.checked} + {moe_fn.checked} (max err "
+        f"{attn_fn.err:.3g}, {moe_fn.err:.3g}); served tokens at most "
+        f"{worst:.4f} below the prefill's top over {len(picks)} steps "
+        f"({card})")
+    del llm, batcher, params
+    return (moe_fn.err, moe_fn.launches), (attn_fn.err, attn_fn.launches)
+
+
+def latent_phase(dev, card):
+    """[latent]: returns the `moe_experts` entry's (launches, err, times)
+    and the decode kernel's (launches, err) at the latent geometry."""
+    import torch
+
+    raw, cfg = latent_config()
+    log(f"[latent] DeepSeek-V2-Lite widths ({LATENT_CONFIG})")
+    (moe_err, moe_n, times), (attn_err, attn_n) = latent_kernels(
+        dev, raw, cfg, card)
+    torch.cuda.empty_cache()
+    (b_moe_err, b_moe_n), (b_attn_err, b_attn_n) = latent_batch(
+        dev, raw, cfg, card)
+    torch.cuda.empty_cache()
+    ms, plain_ms, bound = times[64]
+    return ((moe_n + b_moe_n, max(moe_err, b_moe_err),
+             (ms, plain_ms, None, bound, "bytes")),
+            (attn_n + b_attn_n, max(attn_err, b_attn_err)))
+
+
+def latent_only(dev, card) -> int:
+    """`--latent`: step 14 alone."""
+    latent_phase(dev, card)
+    log(card)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -7833,6 +8133,8 @@ def main() -> int:
         return shard_only(dev, card)
     if sys.argv[1:] == ["--tp"]:
         return tp_only(dev, card)
+    if sys.argv[1:] == ["--latent"]:
+        return latent_only(dev, card)
 
     from rag_application_tpu_torch.ops import fused_topk as ft
     from rag_application_tpu_torch.ops import quant as oq
@@ -7967,6 +8269,11 @@ def main() -> int:
     attn_err = max(attn_err, serve_attn_err)
     tp_launches, tp_attn_err = tp_phase(params, gcfg, dev, card, batch_ref)
     attn_err = max(attn_err, tp_attn_err)
+    del params
+    torch.cuda.empty_cache()
+    (moe_launches, moe_err, moe_t), (latent_launches, latent_attn_err) = \
+        latent_phase(dev, card)
+    attn_err = max(attn_err, latent_attn_err)
 
     def entry(name, source, replaces, launches_, err, t):
         ms, plain_ms, lib_ms, bound_ms, bound_by = t
@@ -8003,9 +8310,13 @@ def main() -> int:
         entry("decode_attn", "rag_application_tpu_torch/csrc/decode_attn.cu",
               "rag_application_tpu/ops/decode_attn.py:86",
               attn_launches + batch_launches + train_launches
-              + serve_launches["decode_attn"] + tp_launches,
+              + serve_launches["decode_attn"] + tp_launches
+              + latent_launches,
               attn_err,
               attn_t),
+        entry("moe_experts", "rag_application_tpu_torch/csrc/moe_experts.cu",
+              "none (the JAX package has no expert layer)", moe_launches,
+              moe_err, moe_t),
         entry("prep_vectors", "rag_application_tpu_torch/csrc/prep_vectors.cu",
               "rag_application_tpu/ops/quant.py:66",
               prep_launches + pipe_launches + ann_preps + agent_preps

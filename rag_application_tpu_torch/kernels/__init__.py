@@ -36,10 +36,10 @@ def launch(entry: str, device: torch.device, *args) -> None:
 
 
 def count_launch(wrapper, by: Optional[Dict[str, int]] = None,
-                 key: Optional[str] = None) -> None:
-    """Add one to a kernel wrapper's ``launches`` (and to ``by[key]``,
-    a count by kernel), under a lock."""
+                 key: Optional[str] = None, n: int = 1) -> None:
+    """Add ``n`` (one) to a kernel wrapper's ``launches`` (and to
+    ``by[key]``, a count by kernel), under a lock."""
     with _count_lock:
-        wrapper.launches += 1
+        wrapper.launches += n
         if by is not None:
-            by[key] += 1
+            by[key] += n

@@ -129,6 +129,9 @@ def load() -> ctypes.CDLL:
     lib.decode_attn_launch.restype = i
     lib.decode_attn_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                                        ctypes.c_float, p, p, p]
+    lib.moe_experts_launch.restype = i
+    lib.moe_experts_launch.argtypes = [p, ll, p, ll, i, p, i, i, i, i, p, p,
+                                       p, p, p, p, p, p, p]
     lib.prep_vectors_launch.restype = i
     lib.prep_vectors_launch.argtypes = [p, ll, i, p, i, p, p, p, p, p]
     lib.kernels_error_string.restype = ctypes.c_char_p

@@ -521,7 +521,9 @@ def _ext_reset_row(counts, bias, pres, freq, cstate, cid, row: int) -> None:
 
 @torch.no_grad()
 def _compact(ck, cv, slot_pos) -> Tuple[Any, Any, torch.Tensor, int]:
-    """Re-pack every row's live slots to the front of the slot axis.
+    """Re-pack every row's live slots to the front of the slot axis, in
+    place (the cache tensors keep their storage, so CUDA graphs captured
+    over them stay valid).
 
     Order = stable sort by slot position (DEAD slots sink to the end);
     returns the re-packed caches, slot_pos, and the new shared write head
@@ -534,7 +536,7 @@ def _compact(ck, cv, slot_pos) -> Tuple[Any, Any, torch.Tensor, int]:
         def gather(c):
             def one(d):
                 idx = order.reshape((1,) + order.shape + (1,) * (d.dim() - 3))
-                return torch.gather(d, 2, idx.expand(d.shape))
+                return d.copy_(torch.gather(d, 2, idx.expand(d.shape)))
             return ({k: one(v) for k, v in c.items()} if isinstance(c, dict)
                     else one(c))
 
@@ -577,6 +579,12 @@ class ContinuousBatcher:
                  sampling_ext: bool = False, max_constraints: int = 8):
         if chunk < 1 or horizon < chunk:
             raise ValueError("need chunk >= 1 and horizon >= chunk")
+        if cfg.latent and spec_k:
+            raise ValueError("speculative decoding (spec_k) is not "
+                             "supported with latent attention or experts")
+        if cfg.latent and lora_banks is not None:
+            raise ValueError("LoRA adapters are not supported with latent "
+                             "attention or experts")
         # spec_k works for greedy (argmax-agreement acceptance) AND
         # sampled batchers (rejection-sampled acceptance preserving the
         # filtered distribution exactly); composed with sampling_ext,
@@ -704,14 +712,23 @@ class ContinuousBatcher:
         """Serving counters (also pushed to utils.observability.METRICS
         as decode_* by the loop): ``admissions``, and of them
         ``prefix_hits`` that reused a registered prefix's K/V, with
-        ``prefix_tokens`` the prompt tokens served from it."""
-        return {"steps": self.steps, "compactions": self.compactions,
-                "tokens_out": self.tokens_out,
-                "tokens_per_step": (self.tokens_out / self.steps
-                                    if self.steps else 0.0),
-                "admissions": self.admissions,
-                "prefix_hits": self.prefix_hits,
-                "prefix_tokens": self.prefix_tokens}
+        ``prefix_tokens`` the prompt tokens served from it. A model with
+        experts adds the process's ``moe_routed_pairs`` and
+        ``moe_experts_hit`` (models/moe.py; the latter as of the newest
+        copy the card has finished, read without waiting on it)."""
+        out = {"steps": self.steps, "compactions": self.compactions,
+               "tokens_out": self.tokens_out,
+               "tokens_per_step": (self.tokens_out / self.steps
+                                   if self.steps else 0.0),
+               "admissions": self.admissions,
+               "prefix_hits": self.prefix_hits,
+               "prefix_tokens": self.prefix_tokens}
+        if self.cfg.n_routed_experts:
+            from ..models import moe
+
+            out.update(moe_routed_pairs=moe.routed_pairs(),
+                       moe_experts_hit=moe.experts_hit())
+        return out
 
     # ------------------------------------------------------------ public
 
@@ -1124,6 +1141,10 @@ class ContinuousBatcher:
         METRICS.set_gauge("decode_tokens_per_step",
                           self.tokens_out / max(self.steps, 1))
         METRICS.set_gauge("decode_active_rows", len(busy))
+        if self.cfg.n_routed_experts:
+            from ..models import moe
+
+            moe.experts_hit()  # its newest finished copy into METRICS
 
     def _step(self, use_k: int, eos_vec: np.ndarray,
               rows: int) -> torch.Tensor:

@@ -114,6 +114,29 @@ class DecoderConfig:
     # Fused flash-decode attention for int8 KV caches (T = 1 steps with a
     # kernel-tileable geometry; anything else takes the einsum path).
     attn_kernel: bool = False
+    # DeepSeek-V2 multi-head latent attention (models/mla.py) when
+    # kv_lora_rank > 0: a cache of one latent (kv_lora_rank +
+    # qk_rope_head_dim values) a slot in place of K and V; kv_heads and
+    # head_dim are then unused
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # YaRN ("yarn" rope_kind, latent attention only; rope_factor and
+    # rope_original_max_len above)
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 1.0
+    rope_mscale_all_dim: float = 0.0
+    # routed experts (models/moe.py, latent attention only) in the layers
+    # from first_k_dense_replace on; 0 = a dense MLP in every layer
+    n_routed_experts: int = 0
+    n_shared_experts: int = 0
+    moe_intermediate_size: int = 0
+    num_experts_per_tok: int = 0
+    first_k_dense_replace: int = 0
+    norm_topk_prob: bool = False
+    routed_scaling_factor: float = 1.0
 
     @property
     def head_dim(self) -> int:
@@ -122,6 +145,22 @@ class DecoderConfig:
     @property
     def q_groups(self) -> int:
         return self.heads // self.kv_heads
+
+    @property
+    def latent(self) -> bool:
+        """Multi-head latent attention (and, with experts, DeepSeek-V2's
+        block) in place of GQA."""
+        return self.kv_lora_rank > 0
+
+    @property
+    def latent_dim(self) -> int:
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def dense_layers(self) -> int:
+        """Leading layers with a dense MLP; the rest hold experts."""
+        return (self.first_k_dense_replace if self.n_routed_experts
+                else self.num_layers)
 
 
 def _dtype(cfg: DecoderConfig) -> torch.dtype:
@@ -178,6 +217,8 @@ def init_decoder_params(generator: torch.Generator, cfg: DecoderConfig,
                         device=dev)
         return (w / np.sqrt(fan_in)).to(dt)
 
+    if cfg.latent:
+        return _init_latent_params(cfg, dense, dt, dev)
     return {
         "tok_emb": dense((cfg.vocab_size, H), H),
         "attn_norm": torch.ones((L, H), dtype=dt, device=dev),
@@ -192,6 +233,55 @@ def init_decoder_params(generator: torch.Generator, cfg: DecoderConfig,
         "final_norm": torch.ones((H,), dtype=dt, device=dev),
         "lm_head": dense((H, cfg.vocab_size), H),
     }
+
+
+def latent_shapes(cfg: DecoderConfig) -> Dict[str, Tuple[Tuple[int, ...],
+                                                         int]]:
+    """Each matrix leaf of a latent-attention tree in the stacked (in,
+    out) layout, with its fan-in: attention over all layers, dense MLPs
+    over the leading `dense_layers`, experts over the rest (e_* stacked
+    (layer, expert, in, out); s_* the shared experts as one SwiGLU)."""
+    L, H, V = cfg.num_layers, cfg.hidden, cfg.vocab_size
+    nh, r = cfg.heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    Ld = cfg.dense_layers
+    out = {
+        "tok_emb": ((V, H), H),
+        "wq": ((L, H, nh * (dn + dr)), H),
+        "w_kva": ((L, H, r + dr), H),
+        "w_uk": ((L, r, nh * dn), r),
+        "w_uv": ((L, r, nh * dv), r),
+        "wo": ((L, nh * dv, H), nh * dv),
+    }
+    if Ld:
+        M = cfg.mlp_dim
+        out.update(w_gate=((Ld, H, M), H), w_up=((Ld, H, M), H),
+                   w_down=((Ld, M, H), M))
+    Lm, E, F_ = L - Ld, cfg.n_routed_experts, cfg.moe_intermediate_size
+    if Lm:
+        out.update(router=((Lm, H, E), H), e_gate=((Lm, E, H, F_), H),
+                   e_up=((Lm, E, H, F_), H), e_down=((Lm, E, F_, H), F_))
+        if cfg.n_shared_experts:
+            Fs = cfg.n_shared_experts * F_
+            out.update(s_gate=((Lm, H, Fs), H), s_up=((Lm, H, Fs), H),
+                       s_down=((Lm, Fs, H), Fs))
+    out["lm_head"] = ((H, V), H)
+    return out
+
+
+def _init_latent_params(cfg: DecoderConfig, dense, dt: torch.dtype,
+                        dev: torch.device) -> Dict[str, Any]:
+    if cfg.n_routed_experts and not cfg.num_experts_per_tok:
+        raise ValueError("experts need num_experts_per_tok")
+    L, H = cfg.num_layers, cfg.hidden
+    out = {name: dense(shape, fan_in)
+           for name, (shape, fan_in) in latent_shapes(cfg).items()}
+    out.update(attn_norm=torch.ones((L, H), dtype=dt, device=dev),
+               ffn_norm=torch.ones((L, H), dtype=dt, device=dev),
+               kva_norm=torch.ones((L, cfg.kv_lora_rank), dtype=dt,
+                                   device=dev),
+               final_norm=torch.ones((H,), dtype=dt, device=dev))
+    return out
 
 
 def convert_hf_llama_state_dict(state_dict: Dict[str, Any],
@@ -245,14 +335,93 @@ def convert_hf_llama_state_dict(state_dict: Dict[str, Any],
     return out
 
 
+def convert_hf_deepseek_v2_state_dict(state_dict: Dict[str, Any],
+                                      cfg: DecoderConfig,
+                                      device: DeviceLike = None
+                                      ) -> Dict[str, Any]:
+    """`DeepseekV2ForCausalLM`-layout state dict (`modeling_deepseek.py`,
+    ``q_lora_rank`` null) -> the latent tree of `latent_shapes`. Linear
+    weights are (out, in); ours are (in, out). ``kv_b_proj`` (heads x
+    (nope + v), kv_lora_rank) splits by head into W_uk (its first nope
+    rows a head) and W_uv (the other v rows); ``mlp.gate`` becomes the
+    router, ``mlp.experts.<e>`` and ``mlp.shared_experts`` the stacked
+    e_* and s_* leaves. The rope columns of q_proj and
+    kv_a_proj_with_mqa load as they are: the port's RoPE
+    (models/mla.py::apply_rope) takes their adjacent pairs as the
+    checkpoint's does."""
+    dev = resolve_device(device)
+    dt = _dtype(cfg)
+    nh, dn, dv = cfg.heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    Ld, E = cfg.dense_layers, cfg.n_routed_experts
+
+    def get(key: str) -> torch.Tensor:
+        v = state_dict[key]
+        if isinstance(v, torch.Tensor):
+            return v.detach().cpu().float()
+        return torch.from_numpy(np.asarray(v, dtype=np.float32))
+
+    def stacked(mats) -> torch.Tensor:
+        # each layer cast on its own: a checkpoint's f32 copy of every
+        # layer's experts at once would not fit on a host
+        return torch.stack([m.to(dt) for m in mats]).to(dev)
+
+    def lin(key: str) -> torch.Tensor:
+        return get(key).T
+
+    layers = range(cfg.num_layers)
+    at = "model.layers.{}.self_attn."
+    kvb = [get((at + "kv_b_proj.weight").format(i)).view(
+        nh, dn + dv, cfg.kv_lora_rank) for i in layers]
+    out = {
+        "tok_emb": get("model.embed_tokens.weight").to(dt).to(dev),
+        "attn_norm": stacked(get(f"model.layers.{i}.input_layernorm.weight")
+                             for i in layers),
+        "ffn_norm": stacked(get(
+            f"model.layers.{i}.post_attention_layernorm.weight")
+            for i in layers),
+        "wq": stacked(lin((at + "q_proj.weight").format(i)) for i in layers),
+        "w_kva": stacked(lin((at + "kv_a_proj_with_mqa.weight").format(i))
+                         for i in layers),
+        "kva_norm": stacked(get((at + "kv_a_layernorm.weight").format(i))
+                            for i in layers),
+        "w_uk": stacked(w[:, :dn].reshape(nh * dn, -1).T for w in kvb),
+        "w_uv": stacked(w[:, dn:].reshape(nh * dv, -1).T for w in kvb),
+        "wo": stacked(lin((at + "o_proj.weight").format(i)) for i in layers),
+        "final_norm": get("model.norm.weight").to(dt).to(dev),
+        "lm_head": get("lm_head.weight").T.contiguous().to(dt).to(dev),
+    }
+    mlp = "model.layers.{}.mlp."
+    for short, proj in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
+                        ("w_down", "down_proj")):
+        if Ld:
+            out[short] = stacked(lin((mlp + proj + ".weight").format(i))
+                                 for i in range(Ld))
+    moe_layers = range(Ld, cfg.num_layers)
+    if E and len(moe_layers):
+        out["router"] = stacked(lin((mlp + "gate.weight").format(i))
+                                for i in moe_layers)
+        for short, proj in (("gate", "gate_proj"), ("up", "up_proj"),
+                            ("down", "down_proj")):
+            out["e_" + short] = stacked(torch.stack([
+                lin((mlp + f"experts.{e}.{proj}.weight").format(i))
+                for e in range(E)]) for i in moe_layers)
+            if cfg.n_shared_experts:
+                out["s_" + short] = stacked(lin(
+                    (mlp + f"shared_experts.{proj}.weight").format(i))
+                    for i in moe_layers)
+    return out
+
+
 def quantize_decoder_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """Weight-only int8: every matmul weight becomes ``{"q": int8, "s":
     f32}`` with one scale per OUTPUT channel (`tok_emb` per row, since
-    it is gathered, not contracted). Norm vectors and biases stay."""
+    it is gathered, not contracted). Norm vectors and biases stay, and so
+    does an expert router (kept in bf16, as DeepSeek's inference keeps
+    its gate)."""
     out = {}
     for name, w in params.items():
         if name in ("attn_norm", "ffn_norm", "final_norm",
-                    "bq", "bk", "bv"):
+                    "bq", "bk", "bv", "kva_norm", "router"):
             out[name] = w
             continue
         wf = w.float()
@@ -314,6 +483,8 @@ def init_kv_cache(cfg: DecoderConfig, batch: int,
     cfg.kv_quant each cache is ``{"q": int8, "s": f32 per (slot,
     kv-head)}`` instead of one cfg.dtype tensor."""
     dev = resolve_device(device)
+    if cfg.latent:
+        return _init_latent_cache(cfg, batch, length or cfg.max_len, dev)
     shape = (cfg.num_layers, batch, length or cfg.max_len,
              cfg.kv_heads, cfg.head_dim)
 
@@ -325,6 +496,22 @@ def init_kv_cache(cfg: DecoderConfig, batch: int,
         return torch.zeros(shape, dtype=_dtype(cfg), device=dev)
 
     return one(), one()
+
+
+def _init_latent_cache(cfg: DecoderConfig, batch: int, length: int,
+                       dev: torch.device) -> Tuple[Any, torch.Tensor]:
+    """Latent attention's cache: one latent a slot, (L, B, S, 1, latent)
+    (int8 with one f32 scale a slot under kv_quant), as the K half of
+    the pair; the latent is also the value, so the V half is an empty
+    (L, B, S, 0) placeholder that pastes, compacts and slices as the
+    batcher does a V cache, moving nothing."""
+    shape = (cfg.num_layers, batch, length, 1, cfg.latent_dim)
+    if cfg.kv_quant:
+        k = {"q": torch.zeros(shape, dtype=torch.int8, device=dev),
+             "s": torch.zeros(shape[:-1], dtype=torch.float32, device=dev)}
+    else:
+        k = torch.zeros(shape, dtype=_dtype(cfg), device=dev)
+    return k, torch.zeros(shape[:3] + (0,), dtype=torch.int8, device=dev)
 
 
 def _kv_quantize(x: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -344,6 +531,11 @@ def cache_len(cache: Any) -> int:
 
 
 def _attn_kernel_ok(cfg: DecoderConfig, seq_len: int) -> bool:
+    """The dense geometries keep the JAX package's tiling gate; latent
+    attention's (MQA, 576 wide) is gated by the CUDA kernel's limits."""
+    if cfg.latent:
+        return _da.kernel_fits(seq_len=seq_len, head_dim=cfg.latent_dim,
+                               q_groups=cfg.heads)
     return _da.supported(seq_len=seq_len, kv_heads=cfg.kv_heads,
                          head_dim=cfg.head_dim)
 
@@ -443,6 +635,12 @@ def forward(
     lora_banks builds them with index 0 = the zero adapter, the base).
 
     Returns (hidden (B, T, H), cache_k, cache_v)."""
+    if cfg.latent:
+        from . import latent
+
+        return latent.forward(params, cfg, ids, positions, cache_k,
+                              write_slot, slot_positions, lora), cache_k, \
+            cache_v
     B, T = ids.shape
     S = cache_len(cache_k)
     dt = _dtype(cfg)

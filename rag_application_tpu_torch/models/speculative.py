@@ -129,6 +129,9 @@ def generate_lookup_stats(params: Dict[str, Any], cfg: DecoderConfig,
     if B != 1:
         raise ValueError("generate_lookup is single-row (B=1); batches "
                          "belong to the continuous batcher")
+    if cfg.latent:
+        raise ValueError("speculative decoding is not supported with "
+                         "latent attention or experts")
     K = int(k_spec)
     if K < 1:
         raise ValueError("k_spec must be >= 1")

@@ -18,7 +18,12 @@ it per slot chunk and merges, which moves the bf16 rounding of
 
 `pick_block` and `supported` make the JAX package's decisions, so both
 packages gate the kernel on the same geometries and `generate` rounds
-the slot axis to the same length.
+the slot axis to the same length. `kernel_fits` is the CUDA kernel's own
+limit, the gate of the latent geometry the JAX package does not have:
+absorbed multi-head latent attention (models/mla.py) is MQA, one kv
+head of 576-wide keys (512 latent + 64 rope) under 16 query heads, with
+its own softmax scale (``scale``) and the key's first 512 values as the
+value (the same cache passed as ``ck`` and ``cv``).
 """
 
 from __future__ import annotations
@@ -56,16 +61,25 @@ def supported(*, seq_len: int, kv_heads: int, head_dim: int) -> bool:
     return (kv_heads * head_dim) % 128 == 0 and pick_block(seq_len) is not None
 
 
+def kernel_fits(*, seq_len: int, head_dim: int, q_groups: int) -> bool:
+    """Whether the CUDA kernel takes this geometry by its own limits: S a
+    multiple of 32, hd a multiple of 16 up to 1,024, and a 32-slot block
+    within the shared memory one block may use."""
+    return (seq_len % 32 == 0 and head_dim % 16 == 0 and head_dim <= 1024
+            and _smem_bytes(q_groups, head_dim, 32) <= _SMEM_MAX)
+
+
 def decode_attend_int8_plain(qg: torch.Tensor, ck: Dict[str, torch.Tensor],
                              cv: Dict[str, torch.Tensor],
-                             mask: torch.Tensor) -> torch.Tensor:
+                             mask: torch.Tensor,
+                             scale: Optional[float] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel, same contract as
     `decode_attend_int8`; the softmax is taken in one pass."""
     hd = qg.shape[-1]
     q = qg[:, 0].to(torch.bfloat16).float()                   # (B,KVH,G,hd)
     raw = torch.einsum("bkgd,bskd->bkgs", q, ck["q"].float())
     sc = raw * ck["s"].transpose(1, 2)[:, :, None, :]
-    sc = sc * (1.0 / math.sqrt(hd))
+    sc = sc * (1.0 / math.sqrt(hd) if scale is None else scale)
     vis = mask[:, None, None, :]
     sc = torch.where(vis, sc, NEG)
     m = sc.amax(dim=-1, keepdim=True)
@@ -128,19 +142,21 @@ def resident_blocks(q_groups: int, head_dim: int, chunk: int) -> int:
 
 def decode_attend_int8(qg: torch.Tensor, ck: Dict[str, torch.Tensor],
                        cv: Dict[str, torch.Tensor],
-                       mask: torch.Tensor) -> torch.Tensor:
+                       mask: torch.Tensor,
+                       scale: Optional[float] = None) -> torch.Tensor:
     """Fused T=1 GQA attention against an int8 KV cache.
 
     qg   (B, 1, KVH, G, hd) bf16 — rope'd queries
     ck/cv {"q": (B, S, KVH, hd) int8, "s": (B, S, KVH) f32}
     mask (B, S) bool — slot visibility for the single query token
+    scale  the scores' factor (default 1/sqrt(hd))
     returns (B, 1, KVH, G, hd) attention output, qg.dtype.
 
     Kernel wrapper: launches `csrc/decode_attn.cu` for CUDA tensors and
     runs `decode_attend_int8_plain` for CPU tensors. The kernel takes
     bf16 queries, S a multiple of 32 and hd a multiple of 16."""
     if qg.device.type == "cpu":
-        return decode_attend_int8_plain(qg, ck, cv, mask)
+        return decode_attend_int8_plain(qg, ck, cv, mask, scale)
     if qg.device.type != "cuda":
         raise ValueError(f"decode_attend_int8: unsupported device {qg.device}")
     B, T, KVH, G, hd = qg.shape
@@ -179,7 +195,8 @@ def decode_attend_int8(qg: torch.Tensor, ck: Dict[str, torch.Tensor],
     out = torch.empty_like(qg)
     launch("decode_attn_launch", qg.device, ptr(qg), ptr(ck["q"]),
            ptr(ck["s"]), ptr(cv["q"]), ptr(cv["s"]), ptr(mask), B, S, KVH, G,
-           hd, chunk, 1.0 / math.sqrt(hd), ptr(part), ptr(out))
+           hd, chunk, 1.0 / math.sqrt(hd) if scale is None else float(scale),
+           ptr(part), ptr(out))
     count_launch(decode_attend_int8)
     return out
 

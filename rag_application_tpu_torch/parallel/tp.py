@@ -354,6 +354,9 @@ def shard_params(mesh: Mesh, tree: Any, *, axis: str = "model") -> Any:
     code takes the result where it takes the tree."""
     if mesh.axis_names[1] != axis:
         raise ValueError(f"shard over the mesh's second axis, {axis!r}")
+    if isinstance(tree, Mapping) and ("w_kva" in tree or "router" in tree):
+        raise ValueError("tensor parallelism is not supported with latent "
+                         "attention or experts")
     dims = param_shardings(mesh, tree, axis=axis)
 
     def place(leaf, dim):

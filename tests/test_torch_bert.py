@@ -191,7 +191,10 @@ def test_from_hf_dir_matches_jax(tmp_path, kind):
         kw.update(quantize=True, kv_quant=True)
     t = LocalLLM.from_hf_dir(d, device="cpu", **kw)
     j = JLocal.from_hf_dir(d, **kw)
-    assert {k: v for k, v in vars(t.cfg).items()} == vars(j.cfg)
+    # the reference's fields equal; the port's latent-attention and expert
+    # fields (DeepSeek-V2, which the reference lacks) stay off
+    assert {k: vars(t.cfg)[k] for k in vars(j.cfg)} == vars(j.cfg)
+    assert not t.cfg.latent and t.cfg.n_routed_experts == 0
     assert t.eos_id == j.eos_id == 2
     msgs = [ChatMessage("user", "hello how is the weather today")]
 

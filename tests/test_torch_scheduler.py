@@ -741,16 +741,18 @@ def test_adapter_row_never_matches_base_prefix():
 def test_compact_gathers_both_int8_leaves():
     """`_compact` against a numpy re-pack: a stable sort of each row's
     slots by position, the int8 rows ("q", one more axis) and their
-    scales ("s") moved together, the head the largest live count."""
+    scales ("s") moved together in the tensors given, the head the
+    largest live count."""
     rng = np.random.default_rng(30)
     L, B, S, KVH, hd = 2, 3, 12, 2, 4
     slot_pos = np.where(rng.random((B, S)) < 0.4, DEAD,
                         rng.integers(0, 20, (B, S))).astype(np.int32)
     q = rng.integers(-127, 128, (L, B, S, KVH, hd)).astype(np.int8)
     s = rng.random((L, B, S, KVH)).astype(np.float32)
-    ck = {"q": torch.from_numpy(q), "s": torch.from_numpy(s)}
-    cv = {"q": torch.from_numpy(q.copy()), "s": torch.from_numpy(s.copy())}
+    ck = {"q": torch.tensor(q), "s": torch.tensor(s)}
+    cv = {"q": torch.tensor(q), "s": torch.tensor(s)}
     nk, _, nsp, head = tsch._compact(ck, cv, torch.from_numpy(slot_pos))
+    assert nk["q"] is ck["q"] and nk["s"] is ck["s"]  # re-packed in place
     order = np.argsort(slot_pos, axis=1, kind="stable")
     np.testing.assert_array_equal(nsp.numpy(),
                                   np.take_along_axis(slot_pos, order, 1))
